@@ -1,28 +1,38 @@
 """benchmark_spgemm_using_csr_tpu_torch — the PyTorch/CUDA port of
 ``benchmark_spgemm_using_csr_tpu`` for NVIDIA Hopper (H100).
 
-This first slice carries the ESC main path: C = A @ B on CSR through
-``spgemm(a, b, method="auto")`` — symbolic pass, host plan + cost-model
-dispatch, the chunked / grouped / tilepack numeric cores (tilepack through
-the hand-written CUDA kernel ``ops/kernels.tile_sort_merge``), and the
-run-sum compaction. The reference package stays the specification: the
+C = A @ B on CSR through ``spgemm(a, b, method="auto")``: symbolic pass,
+host plan + cost-model dispatch, then one numeric core. The ESC cores
+(chunked / grouped / tilepack, tilepack through the hand-written CUDA
+kernel K1 ``ops/kernels.tile_sort_merge``) carry irregular matrices; the
+DIA path (``sparse/dia.py``, ``ops/dia.py``, kernel K3
+``ops/dia_kernels.dia_spgemm_fused``) carries stencil and banded ones. The
+tiled and binned paths (kernel K2 ``ops/kernels.bin_sort_compress``) are
+reached by name. The reference package stays the specification: the
 containers, plans and outputs follow its conventions buffer for buffer.
 
 The package imports torch and never jax.
 """
-from .sparse.csr import CSR, COO, csr_transpose, pad_bucket
+from .sparse.csr import CSR, COO, csr_gather_rows, csr_transpose, pad_bucket
+from .sparse.dia import DIA
 from .ops.dispatch import choose_method
 from .api import spgemm, spgemm_flops, nnz_upper_bound
 from .ops.esc import spgemm_esc_padded
 from .ops.chunked import make_chunked_plan, spgemm_chunked
 from .ops.grouped import make_grouped_plan, spgemm_grouped
 from .ops.tilepack import make_tilepack_plan, spgemm_tilepack
+from .ops.dia import dia_spgemm, spgemm_dia
+from .ops.dia_kernels import dia_spgemm_fused
+from .ops.tiled import make_tiled_plan, spgemm_tiled
+from .ops.binned import spgemm_binned_host
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CSR",
     "COO",
+    "DIA",
+    "csr_gather_rows",
     "csr_transpose",
     "pad_bucket",
     "choose_method",
@@ -36,4 +46,10 @@ __all__ = [
     "spgemm_grouped",
     "make_tilepack_plan",
     "spgemm_tilepack",
+    "dia_spgemm",
+    "dia_spgemm_fused",
+    "spgemm_dia",
+    "make_tiled_plan",
+    "spgemm_tiled",
+    "spgemm_binned_host",
 ]

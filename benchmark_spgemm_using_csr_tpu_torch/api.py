@@ -17,12 +17,9 @@ from .sparse.csr import CSR, pad_bucket
 # methods of the reference facade that this package does not have yet, and
 # the ROADMAP item that brings each
 NOT_PORTED = {
-    "dia": "ROADMAP queue 1, Slice B: sparse/dia.py + ops/dia.py (kernel K3)",
     "bsr": "ROADMAP queue 1, Slice C: ops/bsr.py",
     "dense": "ROADMAP queue 1, Slice C: ops/dense.py",
     "hash": "ROADMAP queue 1, Slice D: ops/hash.py",
-    "binned": "ROADMAP queue 1, Slice D: ops/binned.py (kernel K2)",
-    "tiled": "ROADMAP queue 1, Slice D: ops/tiled.py (kernel K2)",
     "fused": "ROADMAP queue 1, Slice D: ops/fused.py",
 }
 
@@ -37,8 +34,9 @@ def spgemm(
 ) -> CSR:
     """C = A @ B.
 
-    method: 'auto' (cost-model dispatch), 'esc', 'chunked', 'grouped' or
-    'tilepack'. Explicit kwargs override ``config`` (a SpGemmConfig).
+    method: 'auto' (cost-model dispatch), 'esc', 'chunked', 'grouped',
+    'tilepack', 'dia', 'tiled' or 'binned'. Explicit kwargs override
+    ``config`` (a SpGemmConfig).
     trim: shrink C's padded buffers to pad_bucket(nnzC).
     """
     config = config or DEFAULT
@@ -93,6 +91,25 @@ def spgemm(
                 "nonzero products)"
             )
         c = spgemm_grouped(a, b, gsched)
+    elif method == "dia":
+        from .ops.dia import spgemm_dia
+
+        c = spgemm_dia(a, b)
+    elif method == "tiled":
+        from .ops.tiled import make_tiled_plan, spgemm_tiled
+
+        tplan = make_tiled_plan(a, b)
+        if tplan is None:
+            raise ValueError(
+                "matrix outside the tiled regime (uniform short rows)"
+            )
+        c = spgemm_tiled(a, b, tplan)
+    elif method == "binned":
+        from .ops.binned import spgemm_binned_host
+
+        prod_capacity = pad_bucket(int(symbolic.total_products(a, b)))
+        c = spgemm_binned_host(a, b, prod_capacity=prod_capacity,
+                               widths=config.bin_widths)
     else:
         raise ValueError(f"unknown method {method!r}")
     if trim:

@@ -12,6 +12,7 @@
 //   4. pos = the tail's index among the row's tails (inclusive scan of the
 //      tail flags, minus one), W where the lane is dropped;
 //   5. cnt[t, j] = tails whose (unsigned) key >> cbits == j, for j < wlr.
+// Steps 1-4 are sort_merge.cuh, shared with K2 (bin_sort_compress.cu).
 //
 // Design: one thread block per tile row, W/2 threads; the row's keys,
 // values and tail flags live in shared memory (12 bytes per lane: 24 KB at
@@ -26,6 +27,8 @@
 // per block, TMA and wgmma are left for later work.
 
 #include <cuda_runtime.h>
+
+#include "sort_merge.cuh"
 
 namespace {
 
@@ -56,81 +59,23 @@ __global__ void __launch_bounds__(1024) tile_sort_merge_kernel(
   for (int j = t; j < wlr; j += half) scnt[j] = 0;
   __syncthreads();
 
-  // 1. bitonic sort, ascending by (key, val). Thread t owns the pair
-  //    (i, i + stride) where i is its t-th lane with the stride bit clear;
-  //    bit `size` of i gives the direction of the merge.
-  for (int size = 2; size <= width; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const int i = 2 * t - (t & (stride - 1));
-      const int j = i + stride;
-      const int ki = skey[i];
-      const int kj = skey[j];
-      const float vi = sval[i];
-      const float vj = sval[j];
-      const bool greater = (ki > kj) || (ki == kj && vi > vj);
-      const bool ascending = (i & size) == 0;
-      if (greater == ascending) {
-        skey[i] = kj;
-        skey[j] = ki;
-        sval[i] = vj;
-        sval[j] = vi;
-      }
-      __syncthreads();
-    }
-  }
+  sort_merge::Lane<float> la, lb;
+  sort_merge::sort_merge_row(skey, sval, sflag, width, t, sentinel, la, lb);
 
-  // 2-4. run tails, then the run-sum and the inclusive tail-flag scan in
-  //      one log-step loop (both read lane - k, so they share the barriers)
-  const int ka = skey[a];
-  const int kb = skey[b];
-  const int kb_next = (b == width - 1) ? sentinel : skey[b + 1];
-  const bool tail_a = ka < sentinel && ka != skey[a + 1];  // a < width - 1
-  const bool tail_b = kb < sentinel && (kb != kb_next || b == width - 1);
-  float run_a = sval[a];
-  float run_b = sval[b];
-  int incl_a = tail_a;
-  int incl_b = tail_b;
-  sflag[a] = incl_a;
-  sflag[b] = incl_b;
-  __syncthreads();
-  for (int k = 1; k < width; k <<= 1) {
-    float add_a = 0.0f, add_b = 0.0f;
-    int fadd_a = 0, fadd_b = 0;
-    if (a >= k) {
-      if (skey[a - k] == ka) add_a = sval[a - k];
-      fadd_a = sflag[a - k];
-    }
-    if (b >= k) {
-      if (skey[b - k] == kb) add_b = sval[b - k];
-      fadd_b = sflag[b - k];
-    }
-    __syncthreads();
-    // always add (0 where the key differs), as the Pallas kernel does
-    run_a = run_a + add_a;
-    run_b = run_b + add_b;
-    incl_a += fadd_a;
-    incl_b += fadd_b;
-    sval[a] = run_a;
-    sval[b] = run_b;
-    sflag[a] = incl_a;
-    sflag[b] = incl_b;
-    __syncthreads();
-  }
-
-  okey[base + a] = tail_a ? ka : sentinel;
-  okey[base + b] = tail_b ? kb : sentinel;
-  oval[base + a] = tail_a ? run_a : 0.0f;
-  oval[base + b] = tail_b ? run_b : 0.0f;
-  pos[base + a] = tail_a ? incl_a - 1 : width;
-  pos[base + b] = tail_b ? incl_b - 1 : width;
+  okey[base + a] = la.tail ? la.key : sentinel;
+  okey[base + b] = lb.tail ? lb.key : sentinel;
+  oval[base + a] = la.tail ? la.run : 0.0f;
+  oval[base + b] = lb.tail ? lb.run : 0.0f;
+  pos[base + a] = la.tail ? la.incl - 1 : width;
+  pos[base + b] = lb.tail ? lb.incl - 1 : width;
 
   // 5. per-local-row tail counts (logical shift, as the Pallas kernel)
-  if (tail_a) {
-    const unsigned lr = static_cast<unsigned>(ka) >> cbits;
+  if (la.tail) {
+    const unsigned lr = static_cast<unsigned>(la.key) >> cbits;
     if (lr < static_cast<unsigned>(wlr)) atomicAdd(&scnt[lr], 1);
   }
-  if (tail_b) {
-    const unsigned lr = static_cast<unsigned>(kb) >> cbits;
+  if (lb.tail) {
+    const unsigned lr = static_cast<unsigned>(lb.key) >> cbits;
     if (lr < static_cast<unsigned>(wlr)) atomicAdd(&scnt[lr], 1);
   }
   __syncthreads();

@@ -1,0 +1,141 @@
+"""Binned numeric path: rows binned by intermediate-product count, one
+dense (rows, width) tile per bin, each row sorted and merged along its
+lanes.
+
+The reference benchmark bins rows into 38 bins and runs a heap, a bitonic
+ESC or a merge method per bin; the reference package keeps the binning and
+replaces the three methods by one tile primitive per width
+(``ops/binned.py``). Here every bin's tile goes through kernel K2
+(``ops/kernels.bin_sort_compress``): the fused sort + merge + positions
+of the reference's ``"pallas"`` backend, run as its plain version on CPU
+tensors, in the values' own type (float32 or float64). The reference's
+default ``"xla"`` backend, a ``lax.sort`` lane sort, has no counterpart:
+it gives the same structure, and values that differ only in the order of
+the additions.
+
+Rows whose product count exceeds the last width go through the global ESC
+sort on just their products (the merge-method analogue); rows with zero
+products are never touched. Out-of-range scatters go to a dump slot past
+the end.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..sparse.csr import CSR, INDEX_DTYPE, csr_gather_rows, host_view, pad_bucket
+from .chunked import _scatter
+from .esc import gather_products, spgemm_esc_padded
+from .symbolic import nnz_upper_bound
+
+DEFAULT_WIDTHS = (8, 32, 128, 512)
+
+
+def _bin_products(a: CSR, b: CSR, rows, nnz_ct, prodstart, width: int):
+    """The (r_pad, width) product tile of one bin: int32 columns (``b.n``
+    on dead lanes; rows padded with ``a.m`` are all dead) and values."""
+    m, n = a.m, b.n
+    rows_c = torch.clamp(rows, max=m - 1)
+    in_range = rows < m
+    lens = torch.where(in_range, nnz_ct[rows_c], 0)
+    start = torch.where(in_range, prodstart[rows_c], 0)
+    lane = torch.arange(width, dtype=torch.int64, device=a.device)
+    valid = lane[None, :] < lens[:, None]
+    g = start[:, None] + lane[None, :]
+    _, col, val = gather_products(a, b, torch.where(valid, g, 0), valid)
+    col = torch.where(valid, col, n).to(torch.int32)
+    return col, val
+
+
+def make_plan(nnz_ct: np.ndarray, widths=DEFAULT_WIDTHS):
+    """Host stage 2: assign rows to width bins. Returns {width: padded row
+    index array} (padded with m to a power-of-two bucket) and the long-row
+    tail rows."""
+    m = nnz_ct.shape[0]
+    bins = {}
+    prev = 0
+    for w in widths:
+        mask = (nnz_ct > prev) & (nnz_ct <= w)
+        rows = np.nonzero(mask)[0].astype(np.int32)
+        if rows.size:
+            padded = np.full(pad_bucket(rows.size), m, np.int32)
+            padded[: rows.size] = rows
+            bins[w] = padded
+        prev = w
+    tail = np.nonzero(nnz_ct > widths[-1])[0].astype(np.int32)
+    return bins, tail
+
+
+def spgemm_binned_host(
+    a: CSR,
+    b: CSR,
+    prod_capacity: int,
+    out_capacity: int | None = None,
+    widths=DEFAULT_WIDTHS,
+) -> CSR:
+    """Full binned SpGEMM (host-orchestrated over per-bin device stages)."""
+    from .kernels import bin_sort_compress
+
+    m, n = a.m, b.n
+    dev = a.device
+    out_capacity = out_capacity or prod_capacity
+    nnz_ct_dev = nnz_upper_bound(a, b).long()
+    nnz_ct = nnz_ct_dev.cpu().numpy()
+    prodstart = torch.cumsum(nnz_ct_dev, 0) - nnz_ct_dev
+
+    bins, tail = make_plan(nnz_ct, widths)
+    pieces = []  # (rows, cols, vals, counts, pos)
+    for w, rows in bins.items():
+        rows_dev = torch.from_numpy(rows).to(dev).long()
+        col, val = _bin_products(a, b, rows_dev, nnz_ct_dev, prodstart, w)
+        cols_t, vals_t, pos, counts = bin_sort_compress(
+            col, val.contiguous(), n_sentinel=n)
+        pieces.append((rows_dev, cols_t, vals_t, counts, pos))
+
+    c_tail = tail_dev = None
+    if tail.size:
+        tail_dev = torch.from_numpy(tail).to(dev).long()
+        rowptr_h = host_view(a.rowptr).astype(np.int64)
+        nnz_a_tail = int((rowptr_h[tail + 1] - rowptr_h[tail]).sum())
+        a_tail = csr_gather_rows(a, tail_dev, pad_bucket(nnz_a_tail))
+        prod_tail = pad_bucket(int(nnz_ct[tail].sum()))
+        c_tail = spgemm_esc_padded(a_tail, b, prod_tail, prod_tail)
+
+    # exact per-row counts -> rowptr (rows padded with m are dropped)
+    counts_full = torch.zeros(m, dtype=torch.int64, device=dev)
+    for rows_dev, _, _, counts, _ in pieces:
+        counts_full += _scatter(m, rows_dev, counts.long(), accumulate=True)
+    if c_tail is not None:
+        counts_full += _scatter(m, tail_dev, c_tail.row_lengths().long(),
+                                accumulate=True)
+    rowptr = torch.cat([counts_full.new_zeros(1), torch.cumsum(counts_full, 0)])
+
+    # stage 4: every bin's entries to their place in C
+    tgts, cols, vals = [], [], []
+    for rows_dev, cols_t, vals_t, counts, pos in pieces:
+        width = cols_t.shape[1]
+        tgts.append(torch.where(pos < width, rowptr[rows_dev][:, None] + pos,
+                                out_capacity).reshape(-1))
+        cols.append(cols_t.reshape(-1))
+        vals.append(vals_t.reshape(-1).to(a.vals.dtype))
+    if c_tail is not None:
+        local_row = c_tail.row_ids().long()
+        local_row_c = torch.clamp(local_row, max=c_tail.m - 1)
+        offset = (torch.arange(c_tail.capacity, device=dev)
+                  - c_tail.rowptr.long()[local_row_c])
+        orig = tail_dev[local_row_c]
+        tgts.append(torch.where(local_row < c_tail.m, rowptr[orig] + offset,
+                                out_capacity))
+        cols.append(c_tail.colidx)
+        vals.append(c_tail.vals.to(a.vals.dtype))
+    if tgts:
+        tgt = torch.cat(tgts)
+        colidx = _scatter(out_capacity, tgt, torch.cat(cols).to(INDEX_DTYPE),
+                          accumulate=False)
+        vals_buf = _scatter(out_capacity, tgt, torch.cat(vals),
+                            accumulate=False)
+    else:
+        colidx = torch.zeros(out_capacity, dtype=INDEX_DTYPE, device=dev)
+        vals_buf = torch.zeros(out_capacity, dtype=a.vals.dtype, device=dev)
+    return CSR(rowptr=rowptr.to(INDEX_DTYPE), colidx=colidx, vals=vals_buf,
+               shape=(m, n))

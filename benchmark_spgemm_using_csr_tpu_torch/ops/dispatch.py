@@ -1,21 +1,23 @@
 """Cost-model method dispatch for C = A @ B — the stage-2 analogue.
 
 ``choose_method`` estimates the time of each ported numeric backend
-(chunked, tilepack, grouped) and returns the argmin: one host-side O(nnz)
-numpy pass at plan time.
+(chunked, tilepack, grouped, dia) and returns the argmin: host-side numpy
+passes over the structure at plan time (the dia estimate adds an
+``np.unique`` of every entry's diagonal).
 
 Every constant below was measured on a TPU v5e by the reference package
 (``benchmark_spgemm_using_csr_tpu/ops/dispatch.py``), not yet calibrated
 for the H100. They are kept as they are so that the dispatcher picks what
 the reference picks; an H100 calibration replaces them in a later change.
-The estimators of the other backends (bsr, dia, dense, hash) come with
-their methods.
+The estimators of the other backends (bsr, dense, hash) come with their
+methods.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..sparse.csr import CSR, host_view
+from ..sparse.dia import dia_offsets_of
 
 # measured on a TPU v5e, not yet calibrated for the H100
 CHUNKED_NS_PER_PRODUCT = 9.5
@@ -24,6 +26,13 @@ CHUNKED_NS_PER_PRODUCT = 9.5
 CHUNKED_NS_PER_PRODUCT_UNPACKED = 12.6
 CHUNKED_NS_M_TAIL = 169.0
 CHUNKED_FIXED_S = 0.1e-3
+# DIA gather form: fixed cost, per plane slot of the nd_a * nd_b terms, per
+# term op; C's planes must fit DIA_PLANE_BYTES (measured on a TPU v5e, not
+# yet calibrated for the H100)
+DIA_FIXED_S = 0.02e-3
+DIA_NS_PER_SLOT = 0.018
+DIA_OP_OVERHEAD_S = 1.5e-6
+DIA_PLANE_BYTES = 512 << 20
 
 
 def _mstats(x: CSR, _cache={}):
@@ -153,6 +162,41 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     return CHUNKED_FIXED_S + cost * 1e-9
 
 
+def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
+    """DIA gather-form model: nd_a * nd_b * n plane slots plus a per-term
+    op overhead. Infinite where the reference refuses: more than 10 s of
+    slots, more than 4096 diagonals, more terms than the cap (16384 when
+    the product stream is >= 4M products, else 8192), or C's planes over
+    DIA_PLANE_BYTES."""
+    b = a if b is None else b
+    _, nnz_a, *_ = _mstats(a)
+    _, nnz_b, *_ = _mstats(b)
+    if not nnz_a or not nnz_b:
+        return 0.0
+    offs_a = dia_offsets_of(a)
+    offs_b = offs_a if b is a else dia_offsets_of(b)
+    nd_a, nd_b = len(offs_a), len(offs_b)
+    *_, products = _stats(a, b)
+    term_cap = 16384 if products >= (1 << 22) else 8192
+    if (
+        nd_a * nd_b * b.n * DIA_NS_PER_SLOT * 1e-9 > 10.0
+        or nd_a > 4096
+        or nd_b > 4096
+        or nd_a * nd_b > term_cap
+    ):
+        return float("inf")
+    n_off_c = len(np.unique(offs_a[:, None] + offs_b[None, :]))
+    if n_off_c * b.n * a.vals.element_size() > DIA_PLANE_BYTES:
+        return float("inf")
+    # the per-term op overhead generalizes from A @ A as
+    # terms / max(nd_a, nd_b)
+    return (
+        DIA_FIXED_S
+        + nd_a * nd_b * b.n * DIA_NS_PER_SLOT * 1e-9
+        + (nd_a * nd_b / max(nd_a, nd_b, 1)) * DIA_OP_OVERHEAD_S
+    )
+
+
 def choose_method(
     a: CSR, b: CSR | None = None, plans: dict | None = None
 ) -> str:
@@ -165,7 +209,9 @@ def choose_method(
     if products == 0:
         return "chunked"  # degenerate product; every estimate ties at ~0
     est = {
+        # the reference's order, which decides ties
         "chunked": estimate_chunked_s(a, b, products),
+        "dia": estimate_dia_s(a, b),
         "tilepack": estimate_tilepack_s(a, b, plans),
         "grouped": estimate_grouped_s(a, b),
     }

@@ -319,6 +319,37 @@ def coo_to_csr(coo: COO, sort: bool = True, sum_duplicates: bool = False) -> CSR
                shape=coo.shape)
 
 
+def csr_gather_rows(a: CSR, rows: torch.Tensor, nnz_capacity: int) -> CSR:
+    """The rows ``rows`` of ``a`` as a new CSR of shape (len(rows), a.n),
+    with ``nnz_capacity`` slots. ``rows`` may be padded with ``a.m``: those
+    become empty rows. (The long-row tail of ops/binned.)"""
+    m, n = a.shape
+    r = rows.shape[0]
+    dev = a.device
+    rows = rows.long()
+    rows_c = torch.clamp(rows, max=m - 1)
+    in_range = rows < m
+    lens = torch.where(in_range, a.row_lengths().long()[rows_c], 0)
+    starts_src = torch.where(in_range, a.rowptr.long()[rows_c], 0)
+    ends = torch.cumsum(lens, 0)
+    starts_dst = ends - lens
+    t = torch.arange(nnz_capacity, dtype=torch.int64, device=dev)
+    if r == 0:
+        valid = torch.zeros_like(t, dtype=torch.bool)
+        src = t
+    else:
+        # the output row of slot t: the first row whose end passes t (empty
+        # rows share their end with the row before them)
+        j = torch.clamp(torch.searchsorted(ends, t, right=True), max=r - 1)
+        valid = t < ends[-1]
+        src = starts_src[j] + (t - starts_dst[j])
+    src_c = torch.clamp(src, 0, a.capacity - 1)
+    colidx = torch.where(valid, a.colidx[src_c], 0).to(INDEX_DTYPE)
+    vals = torch.where(valid, a.vals[src_c], 0)
+    rowptr = torch.cat([ends.new_zeros(1), ends]).to(INDEX_DTYPE)
+    return CSR(rowptr=rowptr, colidx=colidx, vals=vals, shape=(r, n))
+
+
 def csr_transpose(a: CSR) -> CSR:
     """CSR transpose via a COO sort."""
     coo = a.to_coo()

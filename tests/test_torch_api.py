@@ -19,7 +19,7 @@ from benchmark_spgemm_using_csr_tpu_torch.api import NOT_PORTED
 
 torch.set_num_threads(2)
 
-PORTED = {"chunked", "tilepack", "grouped"}
+PORTED = {"chunked", "tilepack", "grouped", "dia"}
 
 
 def bridge(j):
@@ -129,11 +129,20 @@ def test_cli_json_on_cpu(capsys, dtype):
 
 @pytest.mark.parametrize("args", [
     ["--op", "spmv"], ["--mesh", "2"], ["--roofline"],
-    ["--dtype", "bfloat16"], ["--method", "dia"],
+    ["--dtype", "bfloat16"], ["--method", "bsr"],
 ])
 def test_cli_unported_options_exit(args):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["suite:er_small", "--device", "cpu"] + args)
+
+
+@pytest.mark.parametrize("method", ["dia", "tiled", "binned"])
+def test_cli_slice_b_and_d_methods_on_cpu(capsys, method):
+    rc = cli.main(["gen:poisson2d:24", "--device", "cpu", "--json", "--runs",
+                   "1", "--warmup", "0", "--method", method])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["verified"] is True
+    assert record["method"] == method and record["m"] == 24 * 24
 
 
 def test_cli_cuda_without_a_card_fails():

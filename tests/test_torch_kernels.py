@@ -1,12 +1,16 @@
-"""Kernel K1 (tile_sort_merge) of the PyTorch port.
+"""Kernels K1 (tile_sort_merge), K2 (bin_sort_compress) and K3
+(dia_spgemm_fused) of the PyTorch port.
 
-The plain PyTorch version is held against the reference's Pallas kernel
-run in interpret mode on the same inputs: keys, positions and counts
-exactly, values within rtol 1e-6 / atol 1e-6 (the same addition tree, so
-in practice bit for bit; the tolerance covers -0.0/+0.0 ties). The CUDA
-kernel is held against the plain version on the card by a test that
-needs a CUDA device and skips without one; on the card, where jax is not
-installed, run it without the repository's conftest:
+The plain PyTorch versions of K1 and K2 are held against the reference's
+Pallas kernels run in interpret mode on the same inputs: keys / columns,
+positions and counts exactly, values within rtol 1e-6 / atol 1e-6 (the
+same addition tree, so in practice bit for bit; the tolerance covers
+-0.0/+0.0 ties). K3's plain version is held against its Pallas kernel in
+tests/test_torch_dia.py. The CUDA kernels are held against the plain
+versions on the card by tests that need a CUDA device and skip without
+one (K3 bit for bit: both sum each plane in one order without FMA); on
+the card, where jax is not installed, run them without the repository's
+conftest:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 """
@@ -14,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark_spgemm_using_csr_tpu_torch.ops import kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import dia_kernels, kernels
+from benchmark_spgemm_using_csr_tpu_torch.sparse.dia import DIA
 
 torch.set_num_threads(2)
 
@@ -131,3 +136,198 @@ def test_cuda_kernel_rejects_non_contiguous():
     val = torch.zeros((4, 128), dtype=torch.float32, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         kernels.tile_sort_merge(key, val, sentinel=SENTINEL, wlr=4, cbits=6)
+
+
+# ---- K2: bin_sort_compress --------------------------------------------------
+
+K2_WIDTHS = [8, 32, 128, 512]
+
+
+def bin_tiles(w: int, n: int, seed: int, rows: int = 8):
+    """Rows of gathered products, one case each: random columns with
+    sentinel holes, heavy duplicates (equal (col, val) pairs too), an
+    all-sentinel row, a single live lane, a single live lane in the last
+    lane, a full row with no sentinel, and two more random rows."""
+    rng = np.random.default_rng(seed)
+    col = rng.integers(0, n, size=(rows, w)).astype(np.int32)
+    val = rng.standard_normal((rows, w)).astype(np.float32)
+    col[0, rng.random(w) < 0.3] = n
+    col[1] = rng.integers(0, 3, size=w)  # heavy duplicates
+    val[1] = np.round(val[1])
+    col[2] = n  # all-sentinel row
+    col[3] = n
+    col[3, w // 3] = n - 1  # single live lane
+    col[4, : w - 1] = n
+    col[4, w - 1] = 0  # live lane stored last, sorting first
+    col[6, rng.random(w) < 0.7] = n
+    return col, val
+
+
+@pytest.mark.parametrize("w", K2_WIDTHS, ids=[f"W{w}" for w in K2_WIDTHS])
+def test_k2_plain_matches_pallas(w):
+    import jax.numpy as jnp
+
+    from benchmark_spgemm_using_csr_tpu.ops.pallas_kernels import (
+        bin_sort_compress as pallas_bin_sort_compress,
+    )
+
+    n = 5 * w
+    col, val = bin_tiles(w, n, seed=w)
+    want = [np.asarray(x) for x in pallas_bin_sort_compress(
+        jnp.asarray(col), jnp.asarray(val), n_sentinel=n, interpret=True)]
+    before = kernels.bin_sort_compress.launches
+    got = [x.numpy() for x in kernels.bin_sort_compress(
+        torch.from_numpy(col), torch.from_numpy(val), n_sentinel=n)]
+    assert kernels.bin_sort_compress.launches == before  # CPU: plain
+    np.testing.assert_array_equal(got[0], want[0])  # ocol
+    np.testing.assert_array_equal(got[2], want[2])  # pos
+    np.testing.assert_array_equal(got[3], want[3])  # counts
+    np.testing.assert_allclose(got[1], want[1], **TOL)  # oval
+    assert got[3].shape == (col.shape[0],) and got[3].dtype == np.int32
+    assert got[3][2] == 0 and got[3][3] == 1 and got[3][4] == 1
+    assert got[0][4, 0] == 0 and got[2][4, 0] == 0
+    assert (got[0][2] == n).all() and (got[2][2] == w).all()
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(col=np.zeros((2, 12), np.int32)), ValueError),  # not pow2
+    (dict(col=np.zeros((2, 8), np.int64)), TypeError),
+    (dict(val=np.zeros((2, 8), np.float16)), TypeError),
+    (dict(val=np.zeros((2, 16), np.float32)), ValueError),  # shape
+    (dict(n=0), ValueError),  # sentinel
+])
+def test_k2_wrapper_rejects_bad_inputs(bad, exc):
+    args = dict(col=np.zeros((2, 8), np.int32),
+                val=np.zeros((2, 8), np.float32), n=16)
+    args.update(bad)
+    with pytest.raises(exc):
+        kernels.bin_sort_compress(torch.from_numpy(args["col"]),
+                                  torch.from_numpy(args["val"]),
+                                  n_sentinel=args["n"])
+
+
+def test_k2_no_fallback_off_cpu():
+    col = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    val = torch.zeros((2, 8), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        kernels.bin_sort_compress(col, val, n_sentinel=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", K2_WIDTHS + [2048],
+                         ids=[f"W{w}" for w in K2_WIDTHS + [2048]])
+def test_k2_cuda_kernel_matches_plain(w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 7 * w
+    col, val = bin_tiles(w, n, seed=w + 1)
+    # 8 * 37 rows: the last block of several rows per block is ragged
+    col = torch.from_numpy(np.tile(col, (37, 1))).cuda()
+    val = torch.from_numpy(np.tile(val, (37, 1))).cuda()
+    before = kernels.bin_sort_compress.launches
+    got = kernels.bin_sort_compress(col, val, n_sentinel=n)
+    want = kernels.bin_sort_compress_plain(col, val, n_sentinel=n)
+    torch.cuda.synchronize()
+    assert kernels.bin_sort_compress.launches == before + 1
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    torch.testing.assert_close(got[1], want[1], **TOL)
+
+
+def test_k2_plain_float64_matches_pallas():
+    """K2 takes the values' own type, as the Pallas kernel does: float64
+    values merge in float64. Columns, positions and counts do not depend on
+    the values (the reference's float32 run); the merged values are held
+    against a float64 sum per (row, column)."""
+    import jax.numpy as jnp
+
+    from benchmark_spgemm_using_csr_tpu.ops.pallas_kernels import (
+        bin_sort_compress as pallas_bin_sort_compress,
+    )
+
+    w, n = 32, 5 * 32
+    col, val32 = bin_tiles(w, n, seed=5)
+    val = val32.astype(np.float64) * (1 + 1e-9 * np.arange(w))
+    want = [np.asarray(x) for x in pallas_bin_sort_compress(
+        jnp.asarray(col), jnp.asarray(val32), n_sentinel=n, interpret=True)]
+    got = [x.numpy() for x in kernels.bin_sort_compress(
+        torch.from_numpy(col), torch.from_numpy(val), n_sentinel=n)]
+    assert got[1].dtype == np.float64
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i], want[i])
+    for r in range(col.shape[0]):
+        live = col[r] < n
+        sums = np.zeros(n + 1)
+        np.add.at(sums, col[r][live], val[r][live])
+        tails = got[0][r] < n
+        np.testing.assert_allclose(got[1][r][tails], sums[got[0][r][tails]],
+                                   rtol=1e-12, atol=1e-12)
+        assert (got[1][r][~tails] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k2_cuda_float64_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 7 * 128
+    col, val = bin_tiles(128, n, seed=11)
+    col = torch.from_numpy(np.tile(col, (37, 1))).cuda()
+    val = torch.from_numpy(np.tile(val, (37, 1)).astype(np.float64)).cuda()
+    got = kernels.bin_sort_compress(col, val, n_sentinel=n)
+    want = kernels.bin_sort_compress_plain(col, val, n_sentinel=n)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.float64
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=1e-12)
+
+
+# ---- K3: dia_spgemm_fused ---------------------------------------------------
+
+
+def dia_operand(n: int, offsets, seed: int, m=None, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((len(offsets), n)).astype(dtype)
+    return DIA.from_numpy(data, sorted(offsets), (m or n, n), device="cuda")
+
+
+K3_CASES = {
+    "poisson": lambda: (dia_operand(4096, (-64, -1, 0, 1, 64), 0),) * 2,
+    "banded_ab": lambda: (dia_operand(5000, range(-3, 4), 1),
+                          dia_operand(5000, range(-5, 6), 2)),
+    "ragged_n": lambda: (dia_operand(4097 + 300, (-7, 0, 2), 3),) * 2,
+    "rectangular": lambda: (dia_operand(430, (0, 3), 4, m=400),
+                            dia_operand(500, (-3, 2), 5, m=430)),
+    "float64": lambda: (dia_operand(3000, (-9, 0, 4), 6, dtype=np.float64),
+                        dia_operand(3000, (-2, 0, 11), 7, dtype=np.float64)),
+    "many_planes": lambda: (dia_operand(2048, range(-13, 14), 8),) * 2,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_k3_cuda_kernel_matches_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b = K3_CASES[name]()
+    before = dia_kernels.dia_spgemm_fused.launches
+    got = dia_kernels.dia_spgemm_fused(a, b)
+    want = dia_kernels.dia_spgemm_fused_plain(a, b)
+    torch.cuda.synchronize()
+    assert dia_kernels.dia_spgemm_fused.launches == before + 1
+    assert got.offsets == want.offsets and got.dtype == want.dtype
+    assert torch.equal(got.data, want.data)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_empty_operand_and_span_guard():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = dia_operand(1024, (-1, 0, 1), 9)
+    empty = DIA(torch.zeros((0, 1024), device="cuda"), (), (1024, 1024))
+    before = dia_kernels.dia_spgemm_fused.launches
+    c = dia_kernels.dia_spgemm_fused(a, empty)
+    assert dia_kernels.dia_spgemm_fused.launches == before
+    assert c.offsets == (0,) and not c.data.any()
+    with pytest.raises(ValueError, match="span"):
+        dia_kernels.dia_spgemm_fused(a, a, bj=1)
