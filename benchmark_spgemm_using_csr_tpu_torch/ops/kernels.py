@@ -21,7 +21,7 @@ import torch
 
 from . import _build
 
-MAX_WIDTH = 2048  # one thread block of W/2 <= 1024 threads per tile row
+MAX_WIDTH = 2048  # the widest row the kernels' launch switches instantiate
 MAX_WLR = 1024  # per-local-row counters held in shared memory
 # the C entry points' arguments before the stream
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

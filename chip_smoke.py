@@ -5,18 +5,25 @@
 Phases, each printing one line (or a few):
 
 1. require ``torch.cuda.is_available()``;
-2. the card's name and power limit (nvidia-smi);
+2. the card's name and power limit, and its max SM clock (nvidia-smi);
 3. build the hand-written kernels K1 (``tile_sort_merge``), K2
    (``bin_sort_compress``) and K3 (``dia_spgemm_fused``) from
    ``benchmark_spgemm_using_csr_tpu_torch/csrc`` with nvcc for sm_90a, one
-   nvcc process each, all at once;
-4. K1 against its plain PyTorch version on the card, on synthetic edge-case
-   tiles at W = 128, 1024 and 2048 and on er_medium's own packed tiles
-   (the production shape): keys, positions and counts equal, values within
-   rtol/atol 1e-6; both timed with CUDA events on er_medium's tiles;
-5. K2 the same way, on synthetic edge-case tiles at W = 8, 32, 128 and 512
-   (and float64 values at W = 128) and on mc2depi_524k's own tiled tile
-   (524176 x 32), timed on the latter;
+   nvcc process each, all at once; then the registers and local memory
+   (spills) of every K1/K2 instantiation, as cuobjdump reads them;
+4. K1 against its plain PyTorch version on the card, on er_medium's own
+   packed tiles (the production shape) and on synthetic edge-case tiles at
+   every width of its launch switch (128..2048): keys, positions and counts
+   equal, values within rtol/atol 1e-6, and whether they are bit-equal;
+   kernel, plain version and ``torch.sort`` of the same keys (a sort-only
+   yardstick) timed with CUDA events on er_medium's tiles over batches of
+   10 calls (the kernel also one call per window), beside the byte bound
+   and the sort network's floor;
+5. K2 the same way, on every tile the tiled and binned paths hand it
+   (mc2depi_524k's and poisson2d_256's tiles, each bin of powerlaw_medium),
+   each checked and timed, and on synthetic edge-case tiles at every width
+   of its launch switch (2..2048, a ragged last block), float32 and
+   float64;
 6. K3 against its plain version on synthetic cases (poisson, asymmetric
    banded A.B, n not a multiple of the 4096-column block, rectangular, an
    empty operand, float64) and on the planes of mc2depi_524k, stencil27_32
@@ -50,7 +57,10 @@ is one JSON object on the kernels; the last line is
 from __future__ import annotations
 
 import collections
+import functools
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,10 +87,13 @@ K3_MATRICES = ("mc2depi_524k", "stencil27_32", "pdb_8k")
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # the CLI's float32 verify tolerances
 K1_TOL = dict(rtol=1e-6, atol=1e-6)
 K2_TOL = K1_TOL  # the same addition tree as the plain version
+K1_WIDTHS = (128, 256, 512, 1024, 2048)  # tile_sort_merge.cu's launch switch
+K2_WIDTHS = tuple(1 << i for i in range(1, 12))  # bin_sort_compress.cu's
 K3_TOL = dict(rtol=1e-6, atol=1e-6)  # bit-equal by design (no FMA)
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+SMS, LANES_PER_SM = 132, 128  # H100 SXM: 4 schedulers x 32 lanes per SM
 PKG = "benchmark_spgemm_using_csr_tpu_torch"
 
 
@@ -88,10 +101,13 @@ def phase(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, flush=None) -> float:
-    """Median milliseconds of fn() over reps runs, CUDA events, after a
-    warmup run. ``flush``, a large tensor, is overwritten before every
-    timed run, so that fn finds its inputs outside the L2 cache."""
+def cuda_ms(fn, reps: int = 10, flush=None, batch: int = 1) -> float:
+    """Median milliseconds of fn() over reps samples, CUDA events, after a
+    warmup run. A sample is ``batch`` calls back to back, divided by
+    ``batch``: with batch > 1 the host work of each call overlaps the
+    previous call's kernels, with batch 1 it lies inside the window.
+    ``flush``, a large tensor, is overwritten before every sample, so that
+    fn finds its inputs outside the L2 cache."""
     fn()
     times = []
     for _ in range(reps):
@@ -101,10 +117,11 @@ def cuda_ms(fn, reps: int = 10, flush=None) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -144,7 +161,8 @@ def k1_inputs(rng, r: int, w: int, wlr: int, cbits: int):
 
 def compare_tiles(name, got, want, tol, what: str) -> float:
     """A K1/K2 result against its plain version: keys, pos and counts
-    equal, values within tol. Returns the max abs value difference."""
+    equal, values within tol (the line says whether they are bit-equal).
+    Returns the max abs value difference."""
     torch.cuda.synchronize()
     for i, part in ((0, "keys"), (2, "pos"), (3, "counts")):
         if not torch.equal(got[i], want[i]):
@@ -152,16 +170,42 @@ def compare_tiles(name, got, want, tol, what: str) -> float:
             raise AssertionError(f"{name} {part} differ on {what}: {bad}")
     torch.testing.assert_close(got[1], want[1], **tol)
     err = float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
-    phase(f"{name} on {what}: keys/pos/counts equal, max |val diff| {err:.3g}")
+    phase(f"{name} on {what}: keys/pos/counts equal, values bit-equal "
+          f"{torch.equal(got[1], want[1])}, max |val diff| {err:.3g}")
     return err
 
 
+def time_tiles(name, what, fn, plain, keys, nbytes, sm_hz) -> dict:
+    """The kernel, its plain version and ``torch.sort`` of the same (r, W)
+    keys with indices (a sort-only yardstick, not the kernel's function)
+    timed on one input in batches of 10 calls, the kernel also alone (one
+    call per window, the wrapper's host work included), beside the byte
+    bound and the sort network's floor: its r * W/2 * L(L+1)/2
+    compare-exchanges (L = log2 W) at one per lane and clock on every SM."""
+    ms = cuda_ms(fn, batch=10)
+    alone_ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain, batch=10)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1), batch=10)
+    bound_ms, bound_by = bound(nbytes)
+    r, w = keys.shape
+    lw = w.bit_length() - 1
+    cmpx = r * (w // 2) * lw * (lw + 1) // 2
+    floor_ms = cmpx / (SMS * LANES_PER_SM * sm_hz) * 1e3
+    phase(f"{name} on {what}: kernel {ms:.4f} ms ({alone_ms:.4f} alone), "
+          f"plain {plain_ms:.4f} ms, torch.sort of the keys {sort_ms:.4f} ms "
+          f"(CUDA events, median of 10 batches of 10); bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s; the kernel at {bound_ms / ms:.1%} of it); network floor "
+          f"{floor_ms * 1e3:.1f} us ({cmpx / 1e6:.0f} M compare-exchanges)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_k1(kernels, rng) -> float:
-    """K1 vs plain on synthetic edge-case tiles; returns the max abs value
-    difference."""
+    """K1 vs plain on synthetic edge-case tiles at every width of its launch
+    switch, with a ragged last block, and at the largest wlr; returns the
+    max abs value difference."""
     worst = 0.0
-    for w, r, wlr, cbits in ((128, 4096, 16, 7), (1024, 2048, 8, 16),
-                             (2048, 1024, 16, 6)):
+    for w, wlr, cbits in [(w, 16, 10) for w in K1_WIDTHS] + [(128, 1024, 6)]:
+        r = (1 << 22) // w + 3
         key_np, val_np = k1_inputs(rng, r, w, wlr, cbits)
         key = torch.from_numpy(key_np).cuda()
         val = torch.from_numpy(val_np).cuda()
@@ -173,9 +217,9 @@ def check_k1(kernels, rng) -> float:
     return worst
 
 
-def time_k1(port, kernels) -> dict:
+def time_k1(port, kernels, sm_hz) -> dict:
     """K1 against its plain version on er_medium's own packed tiles, the
-    production shape, then both timed on them."""
+    production shape, then timed on them."""
     from benchmark_spgemm_using_csr_tpu_torch.ops.tilepack import pack_tiles
 
     a = suite_csr(port, "er_medium")
@@ -183,23 +227,14 @@ def time_k1(port, kernels) -> dict:
     key, val = pack_tiles(a, a, sched)
     kw = dict(sentinel=SENTINEL, wlr=sched.plan.wlr_eff, cbits=sched.plan.cbits)
     r, w = key.shape
-    shape = f"{(r, w)} wlr={kw['wlr']}"
-    err = compare_tiles("K1", kernels.tile_sort_merge(key, val, **kw),
-                        kernels.tile_sort_merge_plain(key, val, **kw),
-                        K1_TOL, f"er_medium's tiles {shape}")
-    ms = cuda_ms(lambda: kernels.tile_sort_merge(key, val, **kw))
-    plain_ms = cuda_ms(lambda: kernels.tile_sort_merge_plain(key, val, **kw))
+    what = f"er_medium's tiles {(r, w)} wlr={kw['wlr']}"
+    fn = functools.partial(kernels.tile_sort_merge, key, val, **kw)
+    plain = functools.partial(kernels.tile_sort_merge_plain, key, val, **kw)
+    err = compare_tiles("K1", fn(), plain(), K1_TOL, what)
     # 20 B per lane (key + val read; key, val, pos written) + the counts
     nbytes = r * w * 20 + r * kw["wlr"] * 4
-    bound_ms, bound_by = bound(nbytes)
-    lw = w.bit_length() - 1
-    cmpx = r * (w // 2) * lw * (lw + 1) // 2
-    phase(f"K1 on er_medium's tiles {shape}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (CUDA events, median of 10); bound "
-          f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
-          f"{cmpx / 1e6:.0f} M compare-exchanges")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(time_tiles("K1", what, fn, plain, key, nbytes, sm_hz),
+                max_abs_err=err)
 
 
 # ---- K2 --------------------------------------------------------------------
@@ -225,11 +260,14 @@ def k2_inputs(rng, r: int, w: int, n: int):
 
 
 def check_k2(kernels, rng) -> float:
+    """K2 vs plain on synthetic edge-case tiles at every width of its launch
+    switch, with a ragged last block; returns the max abs value
+    difference."""
     worst = 0.0
-    # r not a multiple of the rows a block holds: a ragged last block
-    for w, r, dtype in ((8, 40003, np.float32), (32, 10001, np.float32),
-                        (128, 4099, np.float32), (512, 1025, np.float32),
-                        (128, 4099, np.float64)):
+    cases = [(w, dtype) for dtype in (np.float32, np.float64)
+             for w in K2_WIDTHS]
+    for w, dtype in cases:
+        r = (1 << 21) // w + 3
         n = 3 * w
         col_np, val_np = k2_inputs(rng, r, w, n)
         col = torch.from_numpy(col_np).cuda()
@@ -242,30 +280,70 @@ def check_k2(kernels, rng) -> float:
     return worst
 
 
-def time_k2(port, kernels) -> dict:
-    """K2 against its plain version on mc2depi_524k's tiled tile, then
-    both timed on it."""
+def k2_path_tiles(port):
+    """Every tile the tiled and binned paths of phase 8 hand K2, as (what,
+    col, val, n): mc2depi_524k's tiled tile (the kernels line's), then
+    poisson2d_256's, then each bin of powerlaw_medium."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops.binned import (
+        _bin_products,
+        make_plan,
+    )
     from benchmark_spgemm_using_csr_tpu_torch.ops.tiled import expand_rows
 
-    a = suite_csr(port, "mc2depi_524k")
-    plan = port.make_tiled_plan(a, a)
-    col, val = expand_rows(a, a, plan)
-    n = a.n
-    r, w = col.shape
-    err = compare_tiles(
-        "K2", kernels.bin_sort_compress(col, val, n_sentinel=n),
-        kernels.bin_sort_compress_plain(col, val, n_sentinel=n), K2_TOL,
-        f"mc2depi_524k's tile {(r, w)}")
-    ms = cuda_ms(lambda: kernels.bin_sort_compress(col, val, n_sentinel=n))
-    plain_ms = cuda_ms(
-        lambda: kernels.bin_sort_compress_plain(col, val, n_sentinel=n))
-    nbytes = r * w * 20 + r * 4  # 20 B per lane + the per-row counts
-    bound_ms, bound_by = bound(nbytes)
-    phase(f"K2 on mc2depi_524k's tile {(r, w)}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (CUDA events, median of 10); bound "
-          f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    for name in ("mc2depi_524k", "poisson2d_256"):
+        a = suite_csr(port, name)
+        col, val = expand_rows(a, a, port.make_tiled_plan(a, a))
+        yield f"{name}'s tile {tuple(col.shape)}", col, val, a.n
+    a = suite_csr(port, "powerlaw_medium")
+    nnz_ct = port.nnz_upper_bound(a, a).long()
+    prodstart = torch.cumsum(nnz_ct, 0) - nnz_ct
+    bins, _ = make_plan(nnz_ct.cpu().numpy())
+    for w, rows in bins.items():
+        rows_dev = torch.from_numpy(rows).cuda().long()
+        col, val = _bin_products(a, a, rows_dev, nnz_ct, prodstart, w)
+        yield (f"powerlaw_medium's bin {tuple(col.shape)}", col,
+               val.contiguous(), a.n)
+
+
+def time_k2(port, kernels, sm_hz) -> dict:
+    """K2 against its plain version on every path tile, each then timed.
+    Returns mc2depi_524k's numbers with the worst error of all."""
+    first, worst = None, 0.0
+    for what, col, val, n in k2_path_tiles(port):
+        fn = functools.partial(kernels.bin_sort_compress, col, val,
+                               n_sentinel=n)
+        plain = functools.partial(kernels.bin_sort_compress_plain, col, val,
+                                  n_sentinel=n)
+        worst = max(worst, compare_tiles("K2", fn(), plain(), K2_TOL, what))
+        r, w = col.shape
+        # col + val read; col, val, pos written; the per-row counts
+        nbytes = r * w * (12 + 2 * val.element_size()) + r * 4
+        numbers = time_tiles("K2", what, fn, plain, col, nbytes, sm_hz)
+        first = first or numbers
+    return dict(first, max_abs_err=worst)
+
+
+def resource_usage(build) -> None:
+    """Registers and local memory (where spills would go) per thread of
+    every K1/K2 instantiation, as cuobjdump reads them from the built
+    libraries."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    for name in ("tile_sort_merge", "bin_sort_compress"):
+        lib = os.path.join(build.BUILD_DIR, f"lib{name}.so")
+        out = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                             text=True, timeout=120, check=True).stdout
+        usage, fn = [], ""
+        for line in out.splitlines():
+            m = re.search(r"Function (\S+):", line)
+            fn = m.group(1) if m else fn
+            m = re.search(r"REG:(\d+) .*LOCAL:(\d+)", line)
+            w = re.search(r"kernelI([fd]?)Li(\d+)E", fn)
+            if m and w:
+                usage.append((w.group(1), int(w.group(2)), int(m.group(1)),
+                              int(m.group(2))))
+        phase(f"csrc/{name}.cu registers (local bytes) per thread: " + ", ".join(
+            f"{'double ' if t == 'd' else ''}W={w}: {reg} ({loc})"
+            for t, w, reg, loc in sorted(usage)))
 
 
 # ---- K3 --------------------------------------------------------------------
@@ -521,6 +599,13 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     )
     phase(smi.stdout.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    sm_mhz = float(clock.stdout.split()[0])
+    phase(f"max SM clock {sm_mhz:.0f} MHz")
 
     import benchmark_spgemm_using_csr_tpu_torch as port
     from benchmark_spgemm_using_csr_tpu_torch.ops import (
@@ -535,12 +620,13 @@ def main() -> int:
     for name, secs in _build.build_cuda().items():
         phase(f"built csrc/{name}.cu for sm_90a in {secs:.2f} s")
     phase(f"all kernels built in {time.perf_counter() - t0:.2f} s")
+    resource_usage(_build)
     rng = np.random.default_rng(0)
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     # 4-6. each kernel against its plain version, and timed
-    k1 = time_k1(port, kernels)
+    k1 = time_k1(port, kernels, sm_mhz * 1e6)
     k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(kernels, rng))
-    k2 = time_k2(port, kernels)
+    k2 = time_k2(port, kernels, sm_mhz * 1e6)
     k2["max_abs_err"] = max(k2["max_abs_err"], check_k2(kernels, rng))
     k3_err = check_k3(port, dia_kernels, rng)
     k3_all = time_k3(port, dia_kernels, flush)

@@ -48,7 +48,8 @@ def tiles(w: int, wlr: int, cbits: int, seed: int):
     return key, val
 
 
-CASES = [(w, wlr) for w in (128, 256, 1024, 2048) for wlr in (1, 4, 16)]
+# every width of K1's launch switch (the Pallas contract, 128..2048)
+CASES = [(w, wlr) for w in (128, 256, 512, 1024, 2048) for wlr in (1, 4, 16)]
 
 
 @pytest.mark.parametrize("w,wlr", CASES, ids=[f"W{w}-wlr{l}" for w, l in CASES])
@@ -108,15 +109,34 @@ def test_no_fallback_off_cpu():
         kernels.tile_sort_merge(key, val, sentinel=SENTINEL, wlr=4, cbits=6)
 
 
+def on_card(a: np.ndarray, offset: int = 0):
+    """``a`` as a contiguous CUDA tensor; ``offset`` elements into its
+    buffer, so that it is not 16-byte aligned and the kernels take their
+    scalar loads."""
+    buf = torch.empty(a.size + offset, dtype=torch.from_numpy(a).dtype,
+                      device="cuda")
+    out = buf[offset:].view(a.shape)
+    out.copy_(torch.from_numpy(a))
+    return out
+
+
+# every width with aligned inputs, and one with unaligned views
+CUDA_CASES = [(w, wlr, 0) for w, wlr in CASES] + [(1024, 4, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,wlr", CASES, ids=[f"W{w}-wlr{l}" for w, l in CASES])
-def test_cuda_kernel_matches_plain(w, wlr):
+@pytest.mark.parametrize(
+    "w,wlr,offset", CUDA_CASES,
+    ids=[f"W{w}-wlr{l}" + ("-unaligned" if o else "")
+         for w, l, o in CUDA_CASES])
+def test_cuda_kernel_matches_plain(w, wlr, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cbits = 7
     key, val = tiles(w, wlr, cbits, seed=w)
-    key = torch.from_numpy(np.tile(key, (50, 1))).cuda()
-    val = torch.from_numpy(np.tile(val, (50, 1))).cuda()
+    # 301 rows: the last block of several rows per block is ragged
+    key = on_card(np.tile(key, (51, 1))[:301], offset)
+    val = on_card(np.tile(val, (51, 1))[:301], offset)
     kw = dict(sentinel=SENTINEL, wlr=wlr, cbits=cbits)
     before = kernels.tile_sort_merge.launches
     got = kernels.tile_sort_merge(key, val, **kw)
@@ -140,7 +160,9 @@ def test_cuda_kernel_rejects_non_contiguous():
 
 # ---- K2: bin_sort_compress --------------------------------------------------
 
-K2_WIDTHS = [8, 32, 128, 512]
+K2_WIDTHS = [2, 4, 8, 16, 32, 64, 128, 512]
+# every width of K2's launch switch with aligned inputs, two unaligned
+K2_CUDA_CASES = [(1 << i, 0) for i in range(1, 12)] + [(8, 1), (512, 1)]
 
 
 def bin_tiles(w: int, n: int, seed: int, rows: int = 8):
@@ -214,16 +236,17 @@ def test_k2_no_fallback_off_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", K2_WIDTHS + [2048],
-                         ids=[f"W{w}" for w in K2_WIDTHS + [2048]])
-def test_k2_cuda_kernel_matches_plain(w):
+@pytest.mark.parametrize(
+    "w,offset", K2_CUDA_CASES,
+    ids=[f"W{w}" + ("-unaligned" if o else "") for w, o in K2_CUDA_CASES])
+def test_k2_cuda_kernel_matches_plain(w, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     n = 7 * w
     col, val = bin_tiles(w, n, seed=w + 1)
-    # 8 * 37 rows: the last block of several rows per block is ragged
-    col = torch.from_numpy(np.tile(col, (37, 1))).cuda()
-    val = torch.from_numpy(np.tile(val, (37, 1))).cuda()
+    # 299 rows: the last block of several rows per block is ragged
+    col = on_card(np.tile(col, (38, 1))[:299], offset)
+    val = on_card(np.tile(val, (38, 1))[:299], offset)
     before = kernels.bin_sort_compress.launches
     got = kernels.bin_sort_compress(col, val, n_sentinel=n)
     want = kernels.bin_sort_compress_plain(col, val, n_sentinel=n)
@@ -266,13 +289,14 @@ def test_k2_plain_float64_matches_pallas():
 
 
 @pytest.mark.cuda
-def test_k2_cuda_float64_matches_plain():
+@pytest.mark.parametrize("w", [8, 128, 2048], ids=["W8", "W128", "W2048"])
+def test_k2_cuda_float64_matches_plain(w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    n = 7 * 128
-    col, val = bin_tiles(128, n, seed=11)
-    col = torch.from_numpy(np.tile(col, (37, 1))).cuda()
-    val = torch.from_numpy(np.tile(val, (37, 1)).astype(np.float64)).cuda()
+    n = 7 * w
+    col, val = bin_tiles(w, n, seed=11)
+    col = on_card(np.tile(col, (38, 1))[:299])
+    val = on_card(np.tile(val, (38, 1))[:299].astype(np.float64))
     got = kernels.bin_sort_compress(col, val, n_sentinel=n)
     want = kernels.bin_sort_compress_plain(col, val, n_sentinel=n)
     torch.cuda.synchronize()
