@@ -14,7 +14,8 @@ reference package's ``ops/dia.py`` does:
   reference leaves it to XLA; also K3's plain version): each output plane
   is a sum of its shifted terms, in ascending B slot;
 - the fused kernel K3 (``ops/dia_kernels.dia_spgemm_fused``), one launch
-  for every plane, chosen by the reference's gate (``fused=None``).
+  for every plane, which ``fused=None`` takes for CUDA planes within its
+  shift span.
 
 ``spgemm_dia`` is the CSR facade: CSR -> DIA (host plan), the product on
 the device, DIA -> CSR on the device with exact zeros pruned.
@@ -34,12 +35,14 @@ def dia_spgemm(a: DIA, b: DIA, fused: bool | None = None) -> DIA:
     Invalid slots stay exactly 0 because both inputs honour the DIA
     zero-outside-matrix invariant.
 
-    fused: route through kernel K3. ``None`` mirrors the reference's
-    automatic gate term for term (float32, nd_a * nd_b <= 81, n >= 2^18,
-    shift span <= 4096), with "the planes lie on a CUDA device" in place
-    of "the JAX backend is the TPU": on the CPU the gather form runs, as
-    the reference keeps it off the TPU. The gate's bounds were measured on
-    a TPU v5e, not yet on the H100.
+    fused: route through kernel K3. ``None`` takes K3 for every pair of
+    CUDA planes in float32 or float64 whose B shift span is within K3's
+    4096 (the reference's block ``bj``); CPU planes keep the gather form.
+    This differs from the reference's gate (float32, nd_a * nd_b <= 81,
+    n >= 2^18, span <= 4096, on the TPU), which was measured on a TPU v5e:
+    on the H100 K3 beats the gather form on every DIA matrix of the suite,
+    in float32 and float64 (PERF.md §6), and the two are bit-equal, so only
+    which implementation runs changes, never a value.
     """
     k, n = a.n, b.n
     if k != b.m:
@@ -48,11 +51,9 @@ def dia_spgemm(a: DIA, b: DIA, fused: bool | None = None) -> DIA:
         span = (max(0, max(b.offsets, default=0))
                 + max(0, -min(b.offsets, default=0)))
         fused = (
-            len(a.offsets) * len(b.offsets) <= 81
-            and n >= (1 << 18)
-            and span <= 4096
-            and a.dtype == torch.float32
-            and b.dtype == torch.float32
+            span <= 4096
+            and torch.promote_types(a.dtype, b.dtype) in (torch.float32,
+                                                          torch.float64)
             and a.device.type == "cuda"
             and b.device.type == "cuda"
         )

@@ -10,7 +10,8 @@ Phases, each printing one line (or a few):
    (``bin_sort_compress``) and K3 (``dia_spgemm_fused``) from
    ``benchmark_spgemm_using_csr_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc process each, all at once; then the registers and local memory
-   (spills) of every K1/K2 instantiation, as cuobjdump reads them;
+   (spills) of every instantiation, as cuobjdump reads them (K3's must
+   have none);
 4. K1 against its plain PyTorch version on the card, on er_medium's own
    packed tiles (the production shape) and on synthetic edge-case tiles at
    every width of its launch switch (128..2048): keys, positions and counts
@@ -24,22 +25,29 @@ Phases, each printing one line (or a few):
    each checked and timed, and on synthetic edge-case tiles at every width
    of its launch switch (2..2048, a ragged last block), float32 and
    float64;
-6. K3 against its plain version on synthetic cases (poisson, asymmetric
-   banded A.B, n not a multiple of the 4096-column block, rectangular, an
-   empty operand, float64) and on the planes of mc2depi_524k, stencil27_32
-   and pdb_8k: offsets equal, values within rtol/atol 1e-6 (designed to be
-   bit-equal; the line says whether they are). K3 and its plain version,
-   which is the gather form that ``dia_spgemm(fused=False)`` runs, timed
-   on the three matrices with CUDA events, the L2 cache flushed by a
-   128 MB write before every timed launch;
-7. the main path, ``spgemm(A, A, method="auto")``, on er_medium,
+6. K3 against its plain version, bit for bit, on synthetic cases (poisson,
+   asymmetric banded A.B, ragged n, rectangular, an empty operand,
+   float64, span 4096, 99 diagonals on 100 columns) and on the planes of
+   every suite member the dispatcher sends to dia (float32; mc2depi_524k,
+   stencil27_32 and pdb_8k also float64), and on a 300-diagonal float64
+   band that the plan sends to K3's direct mode. On each: K3's launch plan
+   and the blocks of it an SM holds at once (the occupancy query), the
+   wrapper's host time a call, K3 timed in batches of 10 calls and one
+   call alone (CUDA events, the L2 cache flushed by a 128 MB write before
+   each sample) and by the profiler (its own device time), against the
+   gather form that ``dia_spgemm(fused=False)`` runs (its plain version;
+   fewer samples where it makes thousands of launches) and the byte
+   bound. consph_83k, whose B span passes K3's 4096, is timed on the
+   gather form and on K3 with ``bj`` widened;
+7. the dispatcher's pick on every suite matrix (which it sends to dia);
+   the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
-   poisson2d_256 and stencil27_32 at full size: the dispatcher's pick and
-   its host time (and that of its dia estimate), the kernels' launch
-   counts, the result against scipy at the CLI's float32 tolerances, the
-   host time of the plan (for dia: CSR -> DIA planes), and the median time
-   and GFlops (2 * products / t) of the numeric phase (plan, or DIA
-   planes, built beforehand) and of the whole call;
+   poisson2d_256, stencil27_32 and pdb_8k at full size: the dispatcher's
+   pick and its host time (and that of its dia estimate), the kernels'
+   launch counts, the result against scipy at the CLI's float32
+   tolerances, the host time of the plan (for dia: CSR -> DIA planes), and
+   the median time and GFlops (2 * products / t) of the numeric phase
+   (plan, or DIA planes, built beforehand) and of the whole call;
 8. ``spgemm(A, A, method="tiled")`` on poisson2d_256 and mc2depi_524k, and
    ``spgemm_binned_host`` on powerlaw_medium (whose rows over 512 products
    take the ESC tail): verified, K2 launched, the numeric median timed;
@@ -57,6 +65,7 @@ is one JSON object on the kernels; the last line is
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import json
 import os
@@ -76,14 +85,23 @@ EXPECTED = {
     "powerlaw_medium": "chunked",
     "circuit_64k": "grouped",
     "scircuit_256k": "grouped",
-    "mc2depi_524k": "dia",  # through K3 (the reference's fused gate)
-    "poisson2d_256": "dia",  # gather form (n < 2^18)
-    "stencil27_32": "dia",  # gather form (729 terms)
+    "mc2depi_524k": "dia",  # each dia product through K3 on the card
+    "poisson2d_256": "dia",
+    "stencil27_32": "dia",  # 27 diagonals, 729 terms
+    "pdb_8k": "dia",  # 99 diagonals, 9801 terms
 }
 # main-path matrices whose run must launch the named kernel
 MUST_LAUNCH = {"er_medium": "tile_sort_merge",
-               "mc2depi_524k": "dia_spgemm_fused"}
-K3_MATRICES = ("mc2depi_524k", "stencil27_32", "pdb_8k")
+               "mc2depi_524k": "dia_spgemm_fused",
+               "stencil27_32": "dia_spgemm_fused",
+               "pdb_8k": "dia_spgemm_fused"}
+# the suite members the dispatcher sends to dia
+DIA_MATRICES = ("poisson2d_64", "poisson2d_256", "banded_16k", "stencil27_32",
+                "mc2depi_524k", "fem_17k", "fem_32k", "pdb_8k", "fem_46k",
+                "consph_83k")
+F64_MATRICES = ("mc2depi_524k", "stencil27_32", "pdb_8k")  # K3 timed in f64
+K3_SPAN = 4096  # K3's contract, the reference's block bj: wider spans raise
+DIRECT_BAND, DIRECT_N = 300, 16384  # float64: K3's plan takes the direct mode
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # the CLI's float32 verify tolerances
 K1_TOL = dict(rtol=1e-6, atol=1e-6)
 K2_TOL = K1_TOL  # the same addition tree as the plain version
@@ -93,6 +111,7 @@ K3_TOL = dict(rtol=1e-6, atol=1e-6)  # bit-equal by design (no FMA)
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FP64_FLOPS_PER_S = 34e12  # outside the tensor cores
 SMS, LANES_PER_SM = 132, 128  # H100 SXM: 4 schedulers x 32 lanes per SM
 PKG = "benchmark_spgemm_using_csr_tpu_torch"
 
@@ -125,11 +144,11 @@ def cuda_ms(fn, reps: int = 10, flush=None, batch: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int = 0):
+def bound(nbytes: int, flops: int = 0, flops_per_s: float = FP32_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the fp32 operations over the fp32 rate."""
+    the operations over their type's rate (fp32 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -323,45 +342,89 @@ def time_k2(port, kernels, sm_hz) -> dict:
     return dict(first, max_abs_err=worst)
 
 
+def res_usage(build, name: str):
+    """(function, registers, local bytes) per kernel of ``lib<name>.so``,
+    as ``cuobjdump -res-usage`` reads them."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    lib = os.path.join(build.BUILD_DIR, f"lib{name}.so")
+    out = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    usage, fn = [], ""
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        fn = m.group(1) if m else fn
+        m = re.search(r"REG:(\d+) .*LOCAL:(\d+)", line)
+        if m:
+            usage.append((fn, int(m.group(1)), int(m.group(2))))
+    return usage
+
+
 def resource_usage(build) -> None:
     """Registers and local memory (where spills would go) per thread of
-    every K1/K2 instantiation, as cuobjdump reads them from the built
-    libraries."""
-    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    every kernel instantiation, as cuobjdump reads them from the built
+    libraries; K3 (whose dynamic shared memory per block each launch plan
+    sets, printed with its timing) must use no local memory."""
     for name in ("tile_sort_merge", "bin_sort_compress"):
-        lib = os.path.join(build.BUILD_DIR, f"lib{name}.so")
-        out = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                             text=True, timeout=120, check=True).stdout
-        usage, fn = [], ""
-        for line in out.splitlines():
-            m = re.search(r"Function (\S+):", line)
-            fn = m.group(1) if m else fn
-            m = re.search(r"REG:(\d+) .*LOCAL:(\d+)", line)
+        usage = []
+        for fn, reg, loc in res_usage(build, name):
             w = re.search(r"kernelI([fd]?)Li(\d+)E", fn)
-            if m and w:
-                usage.append((w.group(1), int(w.group(2)), int(m.group(1)),
-                              int(m.group(2))))
+            if w:
+                usage.append((w.group(1), int(w.group(2)), reg, loc))
         phase(f"csrc/{name}.cu registers (local bytes) per thread: " + ", ".join(
             f"{'double ' if t == 'd' else ''}W={w}: {reg} ({loc})"
             for t, w, reg, loc in sorted(usage)))
+    usage = sorted((k3_instance(fn), reg, loc)
+                   for fn, reg, loc in res_usage(build, "dia_spgemm_fused")
+                   if k3_instance(fn))
+    phase("csrc/dia_spgemm_fused.cu registers (local bytes) per thread: "
+          + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
+    if len(usage) != 18 or any(loc for *_, loc in usage):
+        raise AssertionError(f"K3 instantiations: {usage}")
+
+
+def k3_instance(fn: str) -> str:
+    """'staged float V=4 16 warps' for a K3 kernel's mangled name, else
+    ''."""
+    m = re.search(r"dia_spgemm_kernel_(\w+?)I([fd])Li(\d+)E(?:Li(\d+)E)?",
+                  fn)
+    if not m:
+        return ""
+    return (f"{m.group(1)} {'double' if m.group(2) == 'd' else 'float'} "
+            f"V={m.group(3)} {m.group(4) or 8} warps")
+
+
+def k3_blocks_per_sm(lib, plan, itemsize: int) -> int:
+    """The blocks of ``plan``'s launch shape one SM holds at once, as the
+    occupancy query of ``lib`` (a build of csrc/dia_spgemm_fused.cu) gives
+    it for the current device."""
+    blocks = ctypes.c_int(0)
+    err = lib.dia_spgemm_fused_occupancy(
+        plan.smem, plan.lanes, plan.warps, int(plan.staged),
+        int(itemsize == 8), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"K3 occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 # ---- K3 --------------------------------------------------------------------
 
 
 def compare_dia(dia_kernels, a, b, what: str) -> float:
-    """K3 against its plain version: offsets equal, values within K3_TOL.
-    Returns the max abs difference."""
+    """K3 against its plain version: offsets, type and every value bit
+    for bit (both sum each plane's terms in one order without FMA).
+    Returns the max abs difference (0)."""
     got = dia_kernels.dia_spgemm_fused(a, b)
     want = dia_kernels.dia_spgemm_fused_plain(a, b)
     torch.cuda.synchronize()
     if got.offsets != want.offsets or got.dtype != want.dtype:
         raise AssertionError(f"K3 offsets or type differ on {what}")
     torch.testing.assert_close(got.data, want.data, **K3_TOL)
+    if not torch.equal(got.data, want.data):
+        raise AssertionError(f"K3 is not bit-equal to its plain version on "
+                             f"{what}")
     err = float((got.data - want.data).abs().max())
     phase(f"K3 on {what}: {len(got.offsets)} output planes, offsets equal, "
-          f"bit-equal {torch.equal(got.data, want.data)}, max |diff| "
-          f"{err:.3g}")
+          f"bit-equal")
     return err
 
 
@@ -384,40 +447,144 @@ def check_k3(port, dia_kernels, rng) -> float:
                               (1 << 16, 1 << 16))),
         "synthetic float64": (planes(70000, (-9, 0, 4), dtype=np.float64),
                               planes(70000, (-2, 0, 11), dtype=np.float64)),
+        "synthetic span 4096": (planes(20000, (-2048, -1, 0, 1, 2048)),) * 2,
+        "synthetic 99 diagonals, n = 100": (
+            planes(100, range(-49, 50)),) * 2,
     }
     return max(compare_dia(dia_kernels, a, b, what)
                for what, (a, b) in cases.items())
 
 
+def profiler_ms(fn, kernel: str, flush, reps: int = 10, retry: bool = True):
+    """Mean device time of the kernels whose name holds ``kernel``, over
+    ``reps`` calls of fn each after the L2 flush, as torch.profiler's CUDA
+    activity records them; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total += evt.device_time_total
+            count += evt.count
+    if not count and retry:  # the profiler now and then records nothing
+        return profiler_ms(fn, kernel, flush, reps, retry=False)
+    return total / count / 1e3 if count else None
+
+
+def k3_bound(dia_kernels, a, b):
+    """(bound_ms, bound_by, nbytes, flops) of one product: each plane read
+    or written once; 2 flops per term slot whose A read falls inside the
+    matrix, at the fp32 or fp64 rate."""
+    off_c, terms = dia_kernels.plan_terms(a.offsets, b.offsets)
+    size = a.data.element_size()
+    nbytes = (a.ndiag + b.ndiag + len(off_c)) * b.n * size
+    flops = 2 * sum(max(0, min(b.n, a.n + d2) - max(0, d2))
+                    for dc in off_c for _, _, d2 in terms[dc])
+    rate = FP64_FLOPS_PER_S if size == 8 else FP32_FLOPS_PER_S
+    return (*bound(nbytes, flops, rate), nbytes, flops)
+
+
+def time_k3_once(dia_kernels, a, what: str, flush, gather_reps: int) -> dict:
+    """K3 on A @ A against its plain version (the gather form that
+    ``dia_spgemm(fused=False)`` runs), then timed: batches of 10 calls and
+    one call alone (CUDA events, L2 flushed before each sample), the
+    kernel's own device time (torch.profiler), and the gather form."""
+    err = compare_dia(dia_kernels, a, a, what)
+    fn = functools.partial(dia_kernels.dia_spgemm_fused, a, a)
+    plain = functools.partial(dia_kernels.dia_spgemm_fused_plain, a, a)
+    ms = cuda_ms(fn, flush=flush, batch=10)
+    alone_ms = cuda_ms(fn, flush=flush)
+    prof_ms = profiler_ms(fn, "dia_spgemm_kernel", flush)
+    plain_ms = cuda_ms(plain, reps=gather_reps, flush=flush)
+    host_ms = host_call_ms(fn)
+    bound_ms, bound_by, nbytes, flops = k3_bound(dia_kernels, a, a)
+    plan = dia_kernels.launch_plan(tuple(a.offsets), tuple(a.offsets), a.n,
+                                   a.data.element_size())
+    blocks = k3_blocks_per_sm(
+        dia_kernels._build.cuda_library("dia_spgemm_fused"), plan,
+        a.data.element_size())
+    phase(f"K3's plan on {what}: {plan_text(plan)}, {blocks} blocks per SM "
+          f"at once (occupancy query); the wrapper's host time "
+          f"{host_ms * 1e3:.1f} us a call")
+    prof = "not recorded" if prof_ms is None else f"{prof_ms:.4f} ms"
+    share = "" if prof_ms is None else f"; the kernel at {bound_ms / prof_ms:.1%} of it"
+    phase(f"K3 on {what}: kernel {ms:.4f} ms in batches of 10 "
+          f"({alone_ms:.4f} alone), device time {prof} (profiler); plain "
+          f"= gather form {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); CUDA "
+          f"events, median of 10 (gather {gather_reps}), L2 flushed; "
+          f"bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} "
+          f"MB, {flops / 1e6:.1f} MFLOP{share})")
+    return dict(max_abs_err=err, ms=ms, alone_ms=alone_ms,
+                profiler_ms=prof_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def host_call_ms(fn, calls: int = 50) -> float:
+    """Host milliseconds per call of fn, enqueued back to back (the device
+    keeps up or queues: no synchronize inside the window)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def plan_text(plan) -> str:
+    mode = "staged" if plan.staged else "direct"
+    return (f"{mode}, tile {plan.tile}, {plan.warps} warps x {plan.lanes} "
+            f"slots a lane, {len(plan.groups)} plane groups, "
+            f"{len(plan.groups) * plan.ntiles} blocks, {plan.smem} B of "
+            f"dynamic shared memory per block")
+
+
 def time_k3(port, dia_kernels, flush) -> dict:
-    """K3 against its plain version on the planes of the three DIA
-    matrices, then both timed on each. The plain version is the gather form
-    (``dia_spgemm(fused=False)``), so its time is also ``gather_ms``.
-    Returns {matrix: numbers}."""
+    """K3 against the gather form on the planes of every suite member the
+    dispatcher sends to dia (float32; the main path's three also float64),
+    bit-equal and timed. A B span past K3's 4096 is outside its contract:
+    that member is run with ``bj`` = its span, so its numbers say what
+    widening the contract would give. Returns {name: numbers} (float32)."""
     out = {}
-    for name in K3_MATRICES:
+    for name in DIA_MATRICES:
         a = port.DIA.from_csr(suite_csr(port, name), device="cuda")
-        nd, n = a.ndiag, a.n
-        off_c, terms = dia_kernels.plan_terms(a.offsets, a.offsets)
-        err = compare_dia(dia_kernels, a, a, f"{name}'s planes ({nd} "
-                          f"diagonals, {nd * nd} terms)")
-        ms = cuda_ms(lambda: dia_kernels.dia_spgemm_fused(a, a), flush=flush)
-        plain_ms = cuda_ms(lambda: dia_kernels.dia_spgemm_fused_plain(a, a),
-                           flush=flush)
-        # each plane read or written once; 2 flops per term slot whose A
-        # read falls inside the matrix
-        nbytes = (2 * nd + len(off_c)) * n * a.data.element_size()
-        flops = 2 * sum(max(0, min(n, a.n + d2) - max(0, d2))
-                        for dc in off_c for _, _, d2 in terms[dc])
-        bound_ms, bound_by = bound(nbytes, flops)
-        phase(f"K3 on {name}: kernel {ms:.4f} ms, plain = gather form "
-              f"{plain_ms:.4f} ms (CUDA events, median of 10, L2 flushed); "
-              f"bound {bound_ms * 1e3:.1f} us by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         gather_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+        nd = a.ndiag
+        span = max(0, max(a.offsets)) + max(0, -min(a.offsets))
+        what = (f"{name}'s planes (n={a.n}, {nd} diagonals, {nd * nd} "
+                f"terms, span {span})")
+        reps = 3 if nd * nd > 1000 else 10
+        if span > K3_SPAN:
+            wide = functools.partial(dia_kernels.dia_spgemm_fused, bj=span)
+            ms = cuda_ms(lambda: wide(a, a), flush=flush, batch=10)
+            gather_ms = cuda_ms(
+                lambda: dia_kernels.gather_form(a, a), reps=reps,
+                flush=flush)
+            phase(f"K3 on {what}: span past {K3_SPAN}, the gather form "
+                  f"{gather_ms:.4f} ms on the main path; K3 with bj={span} "
+                  f"would take {ms:.4f} ms in batches of 10")
+            continue
+        out[name] = time_k3_once(dia_kernels, a, what, flush, reps)
+        if name in F64_MATRICES:
+            a64 = port.DIA(a.data.double(), a.offsets, a.shape)
+            time_k3_once(dia_kernels, a64, what + " in float64", flush, reps)
+            del a64
         del a
+        torch.cuda.empty_cache()
+    # the direct mode: a band too wide for shared memory at any tile
+    band = range(-DIRECT_BAND // 2, DIRECT_BAND // 2)
+    data = np.random.default_rng(1).standard_normal((DIRECT_BAND, DIRECT_N))
+    a = port.DIA.from_numpy(data, band, (DIRECT_N, DIRECT_N), device="cuda")
+    if dia_kernels.launch_plan(tuple(band), tuple(band), DIRECT_N, 8).staged:
+        raise AssertionError("the direct-mode case is planned as staged")
+    time_k3_once(dia_kernels, a, f"synthetic {DIRECT_BAND}-diagonal float64 "
+                 f"band, n={DIRECT_N} (direct mode)", flush, 1)
     return out
 
 
@@ -492,6 +659,21 @@ def drive(kernels, dia_kernels, run):
     c = run()
     torch.cuda.synchronize()
     return c, counts(kernels, dia_kernels)
+
+
+def dia_picks(port) -> None:
+    """The dispatcher's pick on every suite matrix (CSR on the card): the
+    members it sends to dia, which K3 takes where their span allows."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+
+    picks = {}
+    for name in generators.SUITE:
+        a = suite_csr(port, name)
+        picks[name] = port.choose_method(a, a)
+        del a
+    dia = sorted(name for name, method in picks.items() if method == "dia")
+    phase(f"choose_method sends {len(dia)} of {len(picks)} suite matrices "
+          f"to dia: {', '.join(dia)}")
 
 
 def main_path(port, kernels, dia_kernels, launches) -> None:
@@ -635,6 +817,7 @@ def main() -> int:
                                         for v in k3_all.values()])
     del flush
     # 7-8. the paths; only their launches count
+    dia_picks(port)
     launches = collections.Counter()
     main_path(port, kernels, dia_kernels, launches)
     tiled_binned_paths(port, kernels, dia_kernels, launches)

@@ -278,19 +278,32 @@ def test_fused_wrapper_rejects_bad_inputs():
 
 
 def test_term_table_is_a_csr_over_the_output_planes():
+    """K3's launch plan: each plane's terms, decoded from its item's entries
+    through its group's staged rows, are ``plan_terms``' (s1, s2, d2) in
+    ascending B slot; the plan is built once per offset pair and shape."""
     off_a, off_b = (-2, 0, 3), (-1, 4)
-    plane_ptr, terms = dia_kernels._term_table(off_a, off_b,
-                                               torch.device("cpu"))
+    plan = dia_kernels.launch_plan(off_a, off_b, 50, 4)
     off_c, by_plane = dia_kernels.plan_terms(off_a, off_b)
-    assert plane_ptr.tolist() == [0] + list(
-        np.cumsum([len(by_plane[dc]) for dc in off_c]))
-    for p, dc in enumerate(off_c):
-        rows = terms[plane_ptr[p]:plane_ptr[p + 1]].tolist()
-        assert [tuple(r) for r in rows] == by_plane[dc]
-        assert all(off_a[s1] + d2 == dc for s1, _, d2 in rows)
-        assert [r[1] for r in rows] == sorted(r[1] for r in rows)
-    assert dia_kernels._term_table(off_a, off_b, torch.device("cpu")) is \
-        dia_kernels._term_table(off_a, off_b, torch.device("cpu"))
+    q_max = dia_kernels.PLANES_PER_ITEM
+    assert len(plan.plane_terms) == len(off_c)
+    for p0, count, row0, nb, na, term0, _, _ in plan.groups:
+        rows = plan.rows[row0:row0 + nb + na]
+        b_at = {4 * at: slot for slot, _, _, at in rows[:nb]}
+        got = {p: [] for p in range(p0, p0 + count)}
+        for first, _, start, end in plan.plane_terms[p0:p0 + -(-count // q_max)]:
+            i = p0 + first
+            for bo, *aos in plan.terms[term0 + start:term0 + end].tolist():
+                for q, ao in enumerate(aos):
+                    if ao < 0:
+                        continue
+                    s1, d2 = next((slot, shift - (ao - 4 * at) // 4)
+                                  for slot, shift, width, at in rows[nb:]
+                                  if 4 * at <= ao < 4 * (at + width))
+                    got[i + q].append((int(s1), b_at[bo], int(d2)))
+        for p in got:
+            assert got[p] == by_plane[off_c[p]]
+            assert all(off_a[s1] + d2 == off_c[p] for s1, _, d2 in got[p])
+    assert dia_kernels.launch_plan(off_a, off_b, 50, 4) is plan
 
 
 # ---- CSR facade and dispatch ---------------------------------------------------

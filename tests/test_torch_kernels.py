@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark_spgemm_using_csr_tpu_torch.ops import dia_kernels, kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import dia, dia_kernels, kernels
 from benchmark_spgemm_using_csr_tpu_torch.sparse.dia import DIA
+from benchmark_spgemm_using_csr_tpu_torch.utils import generators
 
 torch.set_num_threads(2)
 
@@ -315,6 +316,22 @@ def dia_operand(n: int, offsets, seed: int, m=None, dtype=np.float32):
     return DIA.from_numpy(data, sorted(offsets), (m or n, n), device="cuda")
 
 
+def unaligned_operand(n: int, offsets, seed: int) -> DIA:
+    """Contiguous planes that start 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(
+        rng.standard_normal(len(offsets) * n + 1).astype(np.float32)).cuda()
+    data = flat[1:].view(len(offsets), n)
+    rows = np.arange(n)[None, :] - np.asarray(offsets)[:, None]
+    data[torch.from_numpy((rows < 0) | (rows >= n)).cuda()] = 0
+    assert data.data_ptr() % 16 == 4
+    return DIA(data, tuple(offsets), (n, n))
+
+
+def suite_operand(mat) -> DIA:
+    return DIA.from_scipy(mat, device="cuda")
+
+
 K3_CASES = {
     "poisson": lambda: (dia_operand(4096, (-64, -1, 0, 1, 64), 0),) * 2,
     "banded_ab": lambda: (dia_operand(5000, range(-3, 4), 1),
@@ -325,6 +342,17 @@ K3_CASES = {
     "float64": lambda: (dia_operand(3000, (-9, 0, 4), 6, dtype=np.float64),
                         dia_operand(3000, (-2, 0, 11), 7, dtype=np.float64)),
     "many_planes": lambda: (dia_operand(2048, range(-13, 14), 8),) * 2,
+    "diagonals_99": lambda: (suite_operand(
+        generators.fem(6, dof=3, fill=0.9, seed=5)),) * 2,
+    "stencil27": lambda: (suite_operand(generators.stencil27(12)),) * 2,
+    "n_below_one_tile": lambda: (dia_operand(20, (-7, 0, 2), 10),) * 2,
+    "span_4096": lambda: (dia_operand(9000, (-2048, -1, 0, 1, 2048), 11),) * 2,
+    "unaligned_view": lambda: (unaligned_operand(3001, (-5, 0, 1, 40), 12),
+                               unaligned_operand(3001, (-1, 0, 7), 13)),
+    "float64_widest_window": lambda: (
+        dia_operand(4000, range(-32, 33, 2), 14, dtype=np.float64),) * 2,
+    "direct_mode": lambda: (
+        dia_operand(700, range(-150, 150), 15, dtype=np.float64),) * 2,
 }
 
 
@@ -341,6 +369,19 @@ def test_k3_cuda_kernel_matches_plain(name):
     assert dia_kernels.dia_spgemm_fused.launches == before + 1
     assert got.offsets == want.offsets and got.dtype == want.dtype
     assert torch.equal(got.data, want.data)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_auto_gate_launches_k3_on_27_diagonals():
+    """dia_spgemm(fused=None) takes K3 for CUDA planes within its span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = suite_operand(generators.stencil27(16))
+    before = dia_kernels.dia_spgemm_fused.launches
+    c = dia.dia_spgemm(a, a)
+    torch.cuda.synchronize()
+    assert dia_kernels.dia_spgemm_fused.launches == before + 1
+    assert torch.equal(c.data, dia.dia_spgemm(a, a, fused=False).data)
 
 
 @pytest.mark.cuda
