@@ -7,13 +7,24 @@ host plan + cost-model dispatch, then one numeric core. The ESC cores
 kernel K1 ``ops/kernels.tile_sort_merge``) carry irregular matrices; the
 DIA path (``sparse/dia.py``, ``ops/dia.py``, kernel K3
 ``ops/dia_kernels.dia_spgemm_fused``) carries stencil and banded ones. The
-tiled and binned paths (kernel K2 ``ops/kernels.bin_sort_compress``) are
-reached by name. The reference package stays the specification: the
-containers, plans and outputs follow its conventions buffer for buffer.
+tiled, binned and fused paths (kernel K2 ``ops/kernels.bin_sort_compress``)
+are reached by name; the bsr and dense paths (batched dense products) carry
+block-dense and near-dense products, and the hash path and the out-of-core
+``spgemm_batched`` complete the SpGEMM methods. SpMV/SpMM, SpAdd, SpTRSV
+and the ``BhSparse`` lifecycle facade sit on the same containers. The
+reference package stays the specification: the containers, plans and
+outputs follow its conventions buffer for buffer.
 
 The package imports torch and never jax.
 """
-from .sparse.csr import CSR, COO, csr_gather_rows, csr_transpose, pad_bucket
+from .sparse.csr import (
+    BSR,
+    COO,
+    CSR,
+    csr_gather_rows,
+    csr_transpose,
+    pad_bucket,
+)
 from .sparse.dia import DIA
 from .ops.dispatch import choose_method
 from .api import spgemm, spgemm_flops, nnz_upper_bound
@@ -25,6 +36,15 @@ from .ops.dia import dia_spgemm, spgemm_dia
 from .ops.dia_kernels import dia_spgemm_fused
 from .ops.tiled import make_tiled_plan, spgemm_tiled
 from .ops.binned import spgemm_binned_host
+from .ops.bsr import bsr_spgemm, make_bsr_plan, spgemm_bsr
+from .ops.dense import make_dense_plan, spgemm_dense, spgemm_dense_auto
+from .ops.hash import spgemm_hash
+from .ops.fused import spgemm_fused
+from .ops.batched import make_batched_plan, spgemm_batched
+from .ops.spmv import bsr_spmm, spmm, spmv, spmv_t
+from .ops.spadd import make_add_plan, spadd, spadd_planned
+from .ops.sptrsv import ilu0_apply_exact, make_trsv_plan, sptrsv, sptrsv_planned
+from .compat import BhSparse
 
 __version__ = "0.1.0"
 
@@ -52,4 +72,27 @@ __all__ = [
     "make_tiled_plan",
     "spgemm_tiled",
     "spgemm_binned_host",
+    "BSR",
+    "bsr_spgemm",
+    "make_bsr_plan",
+    "spgemm_bsr",
+    "make_dense_plan",
+    "spgemm_dense",
+    "spgemm_dense_auto",
+    "spgemm_hash",
+    "spgemm_fused",
+    "make_batched_plan",
+    "spgemm_batched",
+    "spmv",
+    "spmm",
+    "bsr_spmm",
+    "spmv_t",
+    "make_add_plan",
+    "spadd",
+    "spadd_planned",
+    "make_trsv_plan",
+    "sptrsv",
+    "sptrsv_planned",
+    "ilu0_apply_exact",
+    "BhSparse",
 ]

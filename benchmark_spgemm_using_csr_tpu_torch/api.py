@@ -14,16 +14,6 @@ from .ops import symbolic
 from .ops.esc import spgemm_esc_padded
 from .sparse.csr import CSR, pad_bucket
 
-# methods of the reference facade that this package does not have yet, and
-# the ROADMAP item that brings each
-NOT_PORTED = {
-    "bsr": "ROADMAP queue 1, Slice C: ops/bsr.py",
-    "dense": "ROADMAP queue 1, Slice C: ops/dense.py",
-    "hash": "ROADMAP queue 1, Slice D: ops/hash.py",
-    "fused": "ROADMAP queue 1, Slice D: ops/fused.py",
-}
-
-
 def spgemm(
     a: CSR,
     b: CSR,
@@ -34,9 +24,9 @@ def spgemm(
 ) -> CSR:
     """C = A @ B.
 
-    method: 'auto' (cost-model dispatch), 'esc', 'chunked', 'grouped',
-    'tilepack', 'dia', 'tiled' or 'binned'. Explicit kwargs override
-    ``config`` (a SpGemmConfig).
+    method: 'auto' (cost-model dispatch), 'esc', 'chunked', 'bsr',
+    'dense', 'dia', 'fused', 'binned', 'hash', 'tiled', 'tilepack' or
+    'grouped'. Explicit kwargs override ``config`` (a SpGemmConfig).
     trim: shrink C's padded buffers to pad_bucket(nnzC).
     """
     config = config or DEFAULT
@@ -46,10 +36,6 @@ def spgemm(
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: {NOT_PORTED[method]}"
-        )
     auto = method == "auto"
     plans = {}  # host plans the dispatcher built while pricing
     if auto:
@@ -60,6 +46,22 @@ def spgemm(
         from .ops.chunked import make_chunked_plan, spgemm_chunked
 
         c = spgemm_chunked(a, b, make_chunked_plan(a, b))
+    elif method == "bsr":
+        from .ops.bsr import spgemm_bsr
+
+        c = spgemm_bsr(a, b)
+    elif method == "dense":
+        from .ops.dense import spgemm_dense_auto
+
+        c = spgemm_dense_auto(a, b)
+    elif method == "fused":
+        from .ops.fused import make_plan as _make_fused_plan, spgemm_fused
+
+        c = spgemm_fused(a, b, _make_fused_plan(a, b, widths=config.bin_widths))
+    elif method == "hash":
+        from .ops.hash import spgemm_hash
+
+        c = spgemm_hash(a, b)
     elif method == "esc":
         prod_capacity = pad_bucket(int(symbolic.total_products(a, b)))
         c = spgemm_esc_padded(a, b, prod_capacity, prod_capacity)

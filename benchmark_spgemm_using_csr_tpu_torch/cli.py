@@ -1,14 +1,19 @@
-"""Benchmark command line: C = A @ A for one matrix, timed and checked.
+"""Benchmark command line: one sparse operation on one matrix, timed and
+checked.
 
 Contract (the reference package's CLI, ``benchmark_spgemm_using_csr_tpu``):
 
 - argv: a ``.mtx`` path (symmetric storage expanded, pattern values
   synthesized), a ``suite:<name>`` synthetic matrix from
   ``utils.generators.SUITE``, or ``gen:<kind>:<size>``;
-- B := A; warmup run(s), then N timed runs of ``spgemm(A, A)``;
+- ``--op spgemm`` (default): B := A; warmup run(s), then N timed runs of
+  ``spgemm(A, A)``; ``spmv`` / ``spmm`` (y = A @ x, Y = A @ X with
+  ``--spmm-k`` columns), ``spadd`` (A + A^T) and ``sptrsv`` (L x = b on
+  tril(A) with a diagonal shift, level-scheduled) the same way;
 - correctness check against the scipy golden;
 - prints m, n, nnzA, intermediate products (nnzCt), nnzC, time, GFlops
-  (= 2*nnzCt/time) and nnz/s, or one JSON line with ``--json``.
+  (= 2*nnzCt/time) and nnz/s, or one JSON line with ``--json``; ``--out``
+  appends the record to a JSON-lines file.
 
 ``--device`` (default cuda) names the device; when it is cuda and no CUDA
 device exists the run fails instead of using the CPU.
@@ -19,9 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
-import time
 
 import numpy as np
 
@@ -43,8 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--op", default="spgemm",
         choices=["spgemm", "spmv", "spmm", "spadd", "sptrsv"],
-        help="benchmarked operation (only spgemm is ported yet)",
+        help="benchmarked operation (spgemm: C=A@A; spmv: y=A@x; "
+        "spmm: Y=A@X with k=--spmm-k dense columns; "
+        "spadd: C=A+A^T symmetrization; "
+        "sptrsv: L x = b on tril(A) with a diagonal shift ensuring "
+        "nonsingularity, level-scheduled exact solve)",
     )
+    p.add_argument("--spmm-k", type=int, default=64)
     p.add_argument("--method", default="auto", choices=METHODS)
     p.add_argument("--runs", type=int, default=5)
     p.add_argument("--warmup", type=int, default=2)
@@ -98,8 +106,6 @@ def load_matrix(spec: str, dtype):
 
 
 def _not_ported(args) -> str | None:
-    if args.op != "spgemm":
-        return f"--op {args.op} is not ported yet (ROADMAP queue 1, Slice D)"
     if args.mesh:
         return "--mesh is not ported yet (ROADMAP queue 1, Slice D: parallel/)"
     if args.roofline:
@@ -126,19 +132,22 @@ def main(argv=None) -> int:
     device = _device(args.device)
 
     from . import CSR, spgemm, spgemm_flops
-    from .api import NOT_PORTED
     from .utils.oracle import assert_csr_equal, spgemm_reference
     from .utils.timing import bench
 
-    if args.method in NOT_PORTED:
-        raise SystemExit(
-            f"--method {args.method} is not ported yet: {NOT_PORTED[args.method]}"
-        )
     np_dtype = np.float64 if args.dtype == "float64" else np.float32
     a_sp = load_matrix(args.matrix, np_dtype)
     a = CSR.from_scipy(a_sp, dtype=np_dtype, device=device)
     m, n = a.shape
     nnz_a = int(a_sp.nnz)
+
+    if args.op in ("spmv", "spmm"):
+        return run_spmv_spmm(args, device, a, a_sp, nnz_a)
+    if args.op == "spadd":
+        return run_spadd(args, device, a, a_sp, nnz_a)
+    if args.op == "sptrsv":
+        return run_sptrsv(args, device, a_sp)
+
     flops = spgemm_flops(a, a)
     nnz_ct = flops // 2
 
@@ -180,15 +189,7 @@ def main(argv=None) -> int:
         "verified": verified,
     }
 
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "a") as f:
-            f.write(json.dumps(dict(record, ts=time.time()), sort_keys=True)
-                    + "\n")
-
-    if args.json:
-        print(json.dumps(record))
-    else:
+    if _emit(args, record):
         print(f"matrix     : {args.matrix}  ({m} x {n}, nnzA = {nnz_a})")
         print(f"method     : {record['method']}  dtype={args.dtype}  "
               f"device={res.device}")
@@ -201,6 +202,136 @@ def main(argv=None) -> int:
         if verified is not None:
             print(f"verify     : {'PASS' if verified else 'FAIL'} (vs scipy golden)")
     return 0 if verified in (True, None) else 1
+
+
+def _emit(args, record: dict) -> bool:
+    """Append the record to ``--out`` and print it as JSON with ``--json``;
+    True when the caller prints the text form instead."""
+    if args.out:
+        from .utils.results import write_result
+
+        write_result(args.out, record)
+    if args.json:
+        print(json.dumps(record))
+        return False
+    return True
+
+
+def _finish(args, record: dict, extra: str = "") -> int:
+    """Emit an op's record (text: one line) and return the exit code."""
+    verified = record["verified"]
+    if _emit(args, record):
+        state = "PASS" if verified else ("skip" if verified is None else "FAIL")
+        print(f"{args.op}: {args.matrix}{extra} mean "
+              f"{record['mean_s'] * 1e3:.3f} ms  {record['gflops']:.4f} "
+              f"GFlops  verify {state}")
+    return 0 if verified in (True, None) else 1
+
+
+def _op_record(args, res, m: int, n: int, **extra) -> dict:
+    return {"matrix": args.matrix, "op": args.op, "device": res.device,
+            "m": m, "n": n, **extra, "mean_s": res.mean_s,
+            "min_s": res.min_s, "gflops": res.gflops}
+
+
+def run_spmv_spmm(args, device, a, a_sp, nnz_a: int) -> int:
+    """y = A @ x (spmv) or Y = A @ X (spmm) against the scipy golden; x is
+    float32 from seed 0."""
+    import torch
+
+    from .ops.spmv import spmm as spmm_op, spmv as spmv_op
+    from .utils.timing import bench
+
+    m, n = a.shape
+    rng = np.random.default_rng(0)
+    if args.op == "spmv":
+        x_np = rng.standard_normal(n).astype(np.float32)
+        op, flops = spmv_op, 2 * nnz_a
+    else:
+        x_np = rng.standard_normal((n, args.spmm_k)).astype(np.float32)
+        op, flops = spmm_op, 2 * nnz_a * args.spmm_k
+    x = torch.from_numpy(x_np).to(device)
+    run = lambda: op(a, x)  # noqa: E731
+    res = bench(run, device=device, name=args.matrix, warmup=args.warmup,
+                runs=args.runs, flops=flops)
+    verified = None
+    if not args.no_verify:
+        got = run().cpu().numpy()
+        verified = bool(np.allclose(got, a_sp @ x_np, rtol=1e-3, atol=1e-3))
+        if not verified:
+            print("VERIFY FAILED (spmv/spmm)", file=sys.stderr)
+    record = _op_record(args, res, m, n, nnz_a=nnz_a)
+    return _finish(args, dict(record, verified=verified))
+
+
+def run_spadd(args, device, a, a_sp, nnz_a: int) -> int:
+    """C = A + A^T (symmetrization) against the scipy golden."""
+    from .ops.spadd import make_add_plan, spadd_planned
+    from .sparse.csr import csr_transpose
+    from .utils.oracle import assert_csr_equal
+    from .utils.timing import bench
+
+    m, n = a.shape
+    if m != n:
+        raise SystemExit("spadd demo (A + A^T) needs a square matrix")
+    at = csr_transpose(a)
+    plan = make_add_plan(a, at)
+    run = lambda: spadd_planned(a, at, plan)  # noqa: E731
+    res = bench(run, device=device, name=args.matrix, warmup=args.warmup,
+                runs=args.runs, flops=nnz_a * 2)  # one add per stream slot
+    verified = None
+    if not args.no_verify:
+        try:
+            assert_csr_equal(run(), (a_sp + a_sp.T).tocsr(), rtol=1e-3,
+                             atol=1e-3)
+            verified = True
+        except AssertionError:
+            verified = False
+            print("VERIFY FAILED (spadd)", file=sys.stderr)
+    record = _op_record(args, res, m, n, nnz_a=nnz_a)
+    return _finish(args, dict(record, verified=verified))
+
+
+def run_sptrsv(args, device, a_sp) -> int:
+    """The exact level-scheduled solve L x = b, L = tril(A) in float32 with
+    the diagonal shifted for nonsingularity (row-sum dominance), against
+    scipy.sparse.linalg.spsolve_triangular."""
+    import scipy.sparse as sp
+    import torch
+
+    from . import CSR
+    from .ops.sptrsv import make_trsv_plan, sptrsv_planned
+    from .utils.timing import bench
+
+    m, n = a_sp.shape
+    if m != n:
+        raise SystemExit("sptrsv needs a square matrix")
+    l_sp = sp.tril(a_sp.tocsr(), format="csr").astype(np.float32)
+    shift = np.abs(l_sp).sum(axis=1).max() + 1.0
+    l_sp = (l_sp + sp.identity(m, np.float32, format="csr") * shift).tocsr()
+    nnz_l = l_sp.nnz
+    a = CSR.from_scipy(l_sp, device=device)
+    sched = make_trsv_plan(a, lower=True)
+    b_np = np.random.default_rng(0).standard_normal(m).astype(np.float32)
+    b = torch.from_numpy(b_np).to(device)
+    run = lambda: sptrsv_planned(a, b, sched)  # noqa: E731
+    res = bench(run, device=device, name=args.matrix, warmup=args.warmup,
+                runs=args.runs, flops=2 * nnz_l)
+    verified = None
+    if not args.no_verify:
+        from scipy.sparse.linalg import spsolve_triangular
+
+        want = spsolve_triangular(l_sp, b_np, lower=True)
+        verified = bool(np.allclose(run().cpu().numpy(), want, rtol=1e-3,
+                                    atol=1e-3))
+        if not verified:
+            print("VERIFY FAILED (sptrsv)", file=sys.stderr)
+    record = _op_record(args, res, m, n, nnz_l=nnz_l,
+                        n_levels=sched.plan.n_levels,
+                        n_steps=sched.plan.n_steps)
+    return _finish(args, dict(record, verified=verified),
+                   f" ({m} rows, nnzL {nnz_l}, {sched.plan.n_levels} levels, "
+                   f"{sched.plan.n_steps} steps)")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Config system: the facade's knobs as a frozen dataclass, so they are
 runtime-configurable and testable. The reference package's other fields
-(dtypes, capacity floor) belong to methods not ported yet and come with
-them."""
+(value and index dtypes, capacity floor) are read by none of its paths and
+are not carried."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,10 +12,11 @@ from typing import Tuple
 class SpGemmConfig:
     """Tuning knobs for the SpGEMM pipeline."""
 
-    # binned method: rows with nnzCt <= width go to the sort kernel of that
-    # width; rows beyond the last width take the global ESC path
+    # binned and fused methods: rows with nnzCt <= width go to the sort
+    # kernel of that width; rows beyond the last width take the global ESC
+    # path
     bin_widths: Tuple[int, ...] = (8, 32, 128, 512)
-    # numeric method: auto|esc|chunked|grouped|tilepack|dia|tiled|binned
+    # numeric method: auto or one of api.spgemm's methods
     method: str = "auto"
     # trim outputs to pad_bucket(nnzC) after compute
     trim: bool = True

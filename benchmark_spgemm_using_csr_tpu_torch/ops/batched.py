@@ -1,0 +1,418 @@
+"""Row-batched (out-of-core) SpGEMM for product streams too large for one
+pass.
+
+C's rows are computed in contiguous row blocks: each block is an
+independent SpGEMM over a row slice of A (B untouched), so peak memory is
+bounded by the largest block's working set.
+
+- **Per-block method** among dense / grouped / chunked, from the same cost
+  models as the in-core dispatcher (ops/dispatch), evaluated on the
+  largest block.
+- **Host planning once per structure** (cached on the structure buffers):
+  C's exact structure is the concatenation of per-block pattern products,
+  so the output rowptr/colidx live in the plan as device tensors and the
+  value extraction positions of each block are static.
+- **Per call**: the blocks run one after another (the reference's
+  ``lax.scan`` over dense blocks becomes this loop), and the values are
+  concatenated once.
+- **as_scipy** (C larger than device memory): values fetched once after
+  all blocks ran, structure from the host plan.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from ..sparse.csr import CSR, host_view, pad_bucket
+from .chunked import _shift_compact, make_chunked_plan, spgemm_chunked
+from .dense import csr_to_dense, ieee_fp32
+from .symbolic import total_products
+
+log = logging.getLogger(__name__)
+
+
+def plan_row_batches(
+    nnz_ct: np.ndarray, stream_budget: int
+) -> list[tuple[int, int]]:
+    """Greedy contiguous row blocks with <= stream_budget products each (a
+    single oversized row becomes a block of its own): one searchsorted per
+    block over the prefix sums."""
+    m = len(nnz_ct)
+    if m == 0:
+        return [(0, 0)]
+    cum = np.concatenate([[0], np.cumsum(nnz_ct, dtype=np.int64)])
+    blocks = []
+    start = 0
+    while start < m:
+        end = int(np.searchsorted(cum, cum[start] + stream_budget,
+                                  side="right")) - 1
+        end = min(max(end, start + 1), m)
+        blocks.append((start, end))
+        start = end
+    return blocks
+
+
+@dataclasses.dataclass
+class BatchedPlan:
+    """Built on the host once per (A structure, B structure) pair; its
+    tensors live on A's device, so repeat calls upload nothing."""
+
+    method: str  # 'dense' | 'grouped' | 'chunked'
+    blocks: tuple  # ((lo, hi), ...) contiguous row spans
+    rows_cap: int  # unified padded rows per block
+    nnz_cap: int  # unified padded A entries per block
+    slice0: tuple  # per-block start into A.vals
+    nnz_blk: tuple  # per-block exact A nnz
+    nnz_c_blk: tuple  # per-block exact nnz(C) (assembly offsets)
+    nnz_c: int
+    out_rowptr: torch.Tensor  # (m + 1,) C's rowptr
+    out_colidx: torch.Tensor  # (cap_c,) C's colidx
+    cap_c: int
+    host_rowptr: np.ndarray  # host copies for as_scipy
+    host_colidx: np.ndarray
+    blk_rowptr: tuple  # per-block (rows_cap + 1,) rowptr
+    blk_colidx: tuple  # per-block (nnz_cap,) colidx
+    blk_rows_e: tuple  # per-block (nnz_cap,) entry row ids (pad: rows_cap)
+    # dense method: per-block ('full' | 'shift' | 'gather', payload)
+    flat_c: tuple = ()
+    cap_c_u: int = 0  # unified per-block C capacity
+    # grouped method: per-block GroupedSchedule under unified statics
+    grouped_scheds: tuple = ()
+    # chunked method: one plan for every block
+    chunked_plan: object = None
+
+
+def _block_slices(a_sp, blocks, rows_cap, nnz_cap):
+    """Per-block padded structure (host): rowptr, colidx, entry row ids."""
+    rowptrs, colidxs, rows_es, slice0, nnz_blk = [], [], [], [], []
+    for lo, hi in blocks:
+        s0, s1 = int(a_sp.indptr[lo]), int(a_sp.indptr[hi])
+        nb = s1 - s0
+        rp = np.full(rows_cap + 1, nb, np.int32)
+        rp[: hi - lo + 1] = a_sp.indptr[lo:hi + 1] - s0
+        ci = np.zeros(nnz_cap, np.int32)
+        ci[:nb] = a_sp.indices[s0:s1]
+        re = np.full(nnz_cap, rows_cap, np.int32)
+        re[:nb] = (np.repeat(np.arange(lo, hi), np.diff(a_sp.indptr[lo:hi + 1]))
+                   - lo)
+        rowptrs.append(rp)
+        colidxs.append(ci)
+        rows_es.append(re)
+        slice0.append(s0)
+        nnz_blk.append(nb)
+    return rowptrs, colidxs, rows_es, slice0, nnz_blk
+
+
+def make_batched_plan(
+    a: CSR,
+    b: CSR,
+    stream_budget: int = 64 * 1024 * 1024,
+    dense_block_bytes: int = 128 << 20,
+    method: str | None = None,
+) -> BatchedPlan:
+    """Host stage 2 of the out-of-core path (plan once, run many)."""
+    import scipy.sparse as sp
+
+    m, n = a.m, b.n
+    dev = a.device
+    nnz_a = int(host_view(a.rowptr)[-1])
+    a_sp = sp.csr_matrix(
+        (host_view(a.vals)[:nnz_a], host_view(a.colidx)[:nnz_a],
+         host_view(a.rowptr)[: m + 1]),
+        shape=(m, a.n),
+    )
+    b_rowptr = host_view(b.rowptr)
+    b_len = np.diff(b_rowptr).astype(np.int64)
+    nnz_ct = np.zeros(m, np.int64)
+    if a_sp.nnz:
+        cs = np.concatenate([[0], np.cumsum(b_len[a_sp.indices])])
+        nnz_ct = cs[a_sp.indptr[1:]] - cs[a_sp.indptr[:-1]]
+
+    blocks = plan_row_batches(nnz_ct, stream_budget)
+
+    # method: the in-core cost models on the largest block (blocks are
+    # product-balanced, so it is representative)
+    if method is None:
+        from . import dispatch as D
+
+        lo, hi = max(blocks, key=lambda be: be[1] - be[0])
+        # the estimators read host copies only: the block stays on the host
+        sub = CSR.from_scipy(sp.csr_matrix(a_sp[lo:hi]), device="cpu")
+        est = {
+            "chunked": D.estimate_chunked_s(sub, b),
+            "grouped": D.estimate_grouped_s(sub, b),
+            "dense": D.estimate_dense_s(sub, b),
+        }
+        method = min(est, key=est.get)
+        log.info("batched method=%s est=%s", method, est)
+
+    if method == "dense":
+        # memory-bound blocking: a block's dense C is rows * n * itemsize
+        itemsize = a.vals.element_size()
+        rows_blk = int(max(min(dense_block_bytes // (n * itemsize), m), 8))
+        blocks = [(lo, min(lo + rows_blk, m)) for lo in range(0, m, rows_blk)]
+
+    rows_cap = pad_bucket(max(hi - lo for lo, hi in blocks))
+    nnz_cap = pad_bucket(
+        max(int(a_sp.indptr[hi] - a_sp.indptr[lo]) for lo, hi in blocks) or 1
+    )
+    rowptrs, colidxs, rows_es, slice0, nnz_blk = _block_slices(
+        a_sp, blocks, rows_cap, nnz_cap
+    )
+
+    # exact per-block C pattern (assembly offsets + output structure)
+    pat_a = sp.csr_matrix(
+        (np.ones(a_sp.nnz, np.float64), a_sp.indices, a_sp.indptr),
+        shape=a_sp.shape,
+    )
+    b_ci = host_view(b.colidx)[: int(b_rowptr[-1])]
+    pat_b = sp.csr_matrix(
+        (np.ones(len(b_ci), np.float64), b_ci, b_rowptr[: b.m + 1]),
+        shape=(b.m, n),
+    )
+    pats = []
+    for lo, hi in blocks:
+        pc = (pat_a[lo:hi] @ pat_b).tocsr()
+        pc.sort_indices()
+        pats.append(pc)
+    nnz_c_blk = tuple(int(p.nnz) for p in pats)
+    nnz_c = int(sum(nnz_c_blk))
+    cap_c = pad_bucket(max(nnz_c, 1))
+    out_rowptr = np.zeros(m + 1, np.int64)
+    out_colidx = np.zeros(cap_c, np.int32)
+    off = 0
+    for (lo, hi), pc in zip(blocks, pats):
+        out_rowptr[lo + 1:hi + 1] = off + pc.indptr[1:]
+        out_colidx[off:off + pc.nnz] = pc.indices
+        off += pc.nnz
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    plan = BatchedPlan(
+        method=method,
+        blocks=tuple(blocks),
+        rows_cap=rows_cap,
+        nnz_cap=nnz_cap,
+        slice0=tuple(slice0),
+        nnz_blk=tuple(nnz_blk),
+        nnz_c_blk=nnz_c_blk,
+        nnz_c=nnz_c,
+        out_rowptr=on_dev(out_rowptr.astype(np.int32)),
+        out_colidx=on_dev(out_colidx),
+        cap_c=cap_c,
+        host_rowptr=out_rowptr,
+        host_colidx=out_colidx,
+        blk_rowptr=tuple(on_dev(r) for r in rowptrs),
+        blk_colidx=tuple(on_dev(c) for c in colidxs),
+        blk_rows_e=tuple(on_dev(r) for r in rows_es),
+    )
+
+    if method == "dense":
+        # per-block extraction: 'full' (C block structurally dense),
+        # 'shift' (near-dense: kept/disp and a stable left-compaction),
+        # 'gather' (sparser C: nnz_c flat-position gathers)
+        cap_c_u = pad_bucket(max(max(nnz_c_blk), 1))
+        slots = rows_cap * n
+        extract = []
+        for (lo, hi), pc in zip(blocks, pats):
+            rr = np.repeat(np.arange(hi - lo, dtype=np.int64),
+                           np.diff(pc.indptr))
+            flat = rr * n + pc.indices.astype(np.int64)
+            holes = slots - pc.nnz
+            if holes == 0:
+                extract.append(("full", None))
+            elif holes < slots // 8:
+                kept = np.zeros(slots, np.bool_)
+                kept[flat] = True
+                disp = (np.cumsum(~kept) - ~kept).astype(np.int32)
+                extract.append(("shift", (on_dev(kept), on_dev(disp))))
+            else:
+                f = np.full(cap_c_u, slots, np.int64)  # pad -> guard slot
+                f[: pc.nnz] = flat
+                extract.append(("gather", on_dev(f)))
+        plan.flat_c = tuple(extract)
+        plan.cap_c_u = cap_c_u
+    elif method == "grouped":
+        plan.grouped_scheds = _grouped_block_scheds(plan, a, b, rowptrs,
+                                                    colidxs)
+        if plan.grouped_scheds is None:
+            log.info("grouped regime rejected a block; falling back chunked")
+            return make_batched_plan(
+                a, b, stream_budget=stream_budget,
+                dense_block_bytes=dense_block_bytes, method="chunked",
+            )
+    if method == "chunked":
+        from ..parallel.dist import make_dist_local_plan
+
+        plan.chunked_plan = make_dist_local_plan(
+            a, b, n_shards=len(blocks),
+            bounds=np.asarray([lo for lo, _ in blocks] + [m], np.int64),
+        )
+    return plan
+
+
+def _grouped_block_scheds(plan, a, b, rowptrs, colidxs):
+    """Per-block grouped schedules under one set of statics: plan every
+    block, take the max of each capacity, rebuild every block under it."""
+    from .chunked import pad_gentle
+    from .grouped import make_grouped_plan
+
+    subs = []
+    for rp, ci in zip(rowptrs, colidxs):
+        # structure only; the values must be nonzero, since the plan's
+        # exact nnz(C) is a pattern product of the values
+        va = np.ones(plan.nnz_cap, host_view(a.vals).dtype)
+        subs.append(CSR.from_numpy(rp, ci, va, (plan.rows_cap, a.n),
+                                   device=a.device))
+    base = make_grouped_plan(subs[0], b)
+    if base is None:
+        return None
+    bp = base.plan
+    p1 = [
+        make_grouped_plan(
+            s, b, al=bp.al, target_slots=bp.cs * bp.lanes,
+            force_scatter_set=bp.scatter_set,
+        )
+        for s in subs
+    ]
+    if any(p is None for p in p1):
+        return None
+    live = [p.plan for p in p1]
+    cs_u = max(p.cs for p in live)
+    g_u = max(p.g_cap for p in live)
+    nnz_max = max(p.nnz_c for p in live)
+    unified = dataclasses.replace(
+        bp,
+        cs=cs_u,
+        g_cap=g_u,
+        out_cap=min(pad_gentle(max(nnz_max, 1)), g_u * cs_u * bp.lanes),
+        nnz_c=nnz_max,
+        max_run=max(p.max_run for p in live),
+        lbits=max(p.lbits for p in live),
+    )
+    return tuple(make_grouped_plan(s, b, fixed=unified) for s in subs)
+
+
+def _held_key(a: CSR, b: CSR):
+    """A cache key on the structure buffers, and the buffers it names: a
+    cache holds them, since ids recycle after garbage collection and a
+    stale hit would return another matrix's entry."""
+    bufs = (a.rowptr, a.colidx, b.rowptr, b.colidx)
+    return tuple(id(x) for x in bufs), bufs
+
+
+_plan_cache: dict = {}
+
+
+def _cached_plan(a: CSR, b: CSR, stream_budget, method) -> BatchedPlan:
+    ids, bufs = _held_key(a, b)
+    key = ids + (stream_budget, method)
+    hit = _plan_cache.get(key)
+    if hit is not None:
+        return hit[0]
+    plan = make_batched_plan(a, b, stream_budget=stream_budget, method=method)
+    _plan_cache.clear()  # bound memory: these plans hold device tensors
+    _plan_cache[key] = (plan, bufs)
+    return plan
+
+
+_total_cache: dict = {}
+
+
+def _cached_total(a: CSR, b: CSR) -> int:
+    """The intermediate-product total, memoized on the structure buffers
+    (one device -> host read per structure)."""
+    key, bufs = _held_key(a, b)
+    hit = _total_cache.get(key)
+    if hit is not None:
+        return hit[0]
+    total = int(total_products(a, b))
+    if len(_total_cache) >= 8:
+        _total_cache.pop(next(iter(_total_cache)))
+    _total_cache[key] = (total, bufs)
+    return total
+
+
+def _dense_block(vals_pad, s0, rows_e, cols_e, db, mode, payload, *,
+                 rows_cap, nnz_cap, kdim):
+    """One dense block: densify the A row slice (padding entries target a
+    guard row), matmul against the dense B, extract C's values at the
+    block's static structural positions."""
+    v = vals_pad[s0: s0 + nnz_cap]
+    da = torch.zeros((rows_cap + 1, kdim), dtype=v.dtype, device=v.device)
+    da[rows_e.long(), cols_e.long()] = v
+    with ieee_fp32():
+        flat = (da[:rows_cap] @ db).reshape(-1)
+    if mode == "full":  # block C structurally full
+        return flat
+    if mode == "shift":
+        return _shift_compact(*payload, [flat])[0]
+    guard = torch.cat([flat, flat.new_zeros(1)])
+    return guard[torch.clamp(payload, 0, flat.shape[0])]
+
+
+def spgemm_batched(
+    a: CSR,
+    b: CSR,
+    stream_budget: int = 64 * 1024 * 1024,
+    k: int | None = None,  # kept for API compatibility; unused
+    as_scipy: bool | None = None,
+    method: str | None = None,
+) -> "CSR | object":
+    """C = A @ B with bounded peak memory (module docstring).
+
+    as_scipy: return a host scipy CSR instead of a device CSR. None = auto:
+    a host result whenever the assembled C exceeds 2 GiB."""
+    del k
+    m, n = a.m, b.n
+    if _cached_total(a, b) <= stream_budget:
+        return spgemm_chunked(a, b, make_chunked_plan(a, b))
+
+    plan = _cached_plan(a, b, stream_budget, method)
+    if as_scipy is None:
+        as_scipy = plan.nnz_c * (4 + a.vals.element_size()) > (2 << 30)
+
+    # block values: slices of A's values, padded so the last block's slice
+    # stays in bounds
+    vals_pad = torch.cat([a.vals, a.vals.new_zeros(plan.nnz_cap)])
+    blk_vals = []
+    if plan.method == "dense":
+        db = csr_to_dense(b)
+        for i, (mode, payload) in enumerate(plan.flat_c):
+            blk_vals.append(_dense_block(
+                vals_pad, plan.slice0[i], plan.blk_rows_e[i],
+                plan.blk_colidx[i], db, mode, payload,
+                rows_cap=plan.rows_cap, nnz_cap=plan.nnz_cap, kdim=a.n,
+            ))
+    else:
+        from .grouped import spgemm_grouped
+
+        for i in range(len(plan.blocks)):
+            s0 = plan.slice0[i]
+            a_blk = CSR(plan.blk_rowptr[i], plan.blk_colidx[i],
+                        vals_pad[s0: s0 + plan.nnz_cap], (plan.rows_cap, a.n))
+            if plan.method == "grouped":
+                c_blk = spgemm_grouped(a_blk, b, plan.grouped_scheds[i])
+            else:
+                c_blk = spgemm_chunked(a_blk, b, plan.chunked_plan)
+            blk_vals.append(c_blk.vals)
+
+    # assembly: one concatenation of each block's exact values
+    vals = torch.zeros(plan.cap_c, dtype=a.vals.dtype, device=a.device)
+    vals[: plan.nnz_c] = torch.cat(
+        [v[:s] for v, s in zip(blk_vals, plan.nnz_c_blk)])
+    if as_scipy:
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(
+            (vals[: plan.nnz_c].cpu().numpy(),
+             plan.host_colidx[: plan.nnz_c].copy(),
+             plan.host_rowptr.astype(np.int64)),
+            shape=(m, n),
+        )
+    return CSR(rowptr=plan.out_rowptr, colidx=plan.out_colidx, vals=vals,
+               shape=(m, n))

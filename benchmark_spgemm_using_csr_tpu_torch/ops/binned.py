@@ -47,6 +47,36 @@ def _bin_products(a: CSR, b: CSR, rows, nnz_ct, prodstart, width: int):
     return col, val
 
 
+def _counts_add(counts_full, rows, counts):
+    """counts_full[rows] += counts; rows padded with m are dropped."""
+    return counts_full + _scatter(counts_full.shape[0], rows,
+                                  counts.to(counts_full.dtype),
+                                  accumulate=True)
+
+
+def _rowptr_from_counts(counts_full):
+    return torch.cat([counts_full.new_zeros(1),
+                      torch.cumsum(counts_full, 0)]).to(INDEX_DTYPE)
+
+
+def _scatter_bin(colidx_buf, vals_buf, rowptr, rows, cols_t, vals_t, counts):
+    """Stage-4 compaction of one (rows, width) tile: lane l < counts[r] of
+    row r lands at rowptr[rows[r]] + l; the other lanes (and rows padded
+    with m) are dropped. Returns new (colidx, vals) buffers."""
+    out_capacity = colidx_buf.shape[0]
+    width = cols_t.shape[1]
+    lane = torch.arange(width, device=cols_t.device)
+    valid = lane[None, :] < counts.long()[:, None]
+    base = rowptr.long()[rows.long()]  # rows padded with m: masked out
+    tgt = torch.where(valid, base[:, None] + lane[None, :], out_capacity)
+    tgt = tgt.reshape(-1)
+    colidx = torch.cat([colidx_buf, colidx_buf.new_zeros(1)])
+    vals = torch.cat([vals_buf, vals_buf.new_zeros(1)])
+    colidx[tgt] = cols_t.reshape(-1).to(colidx.dtype)
+    vals[tgt] = vals_t.reshape(-1).to(vals.dtype)
+    return colidx[:out_capacity], vals[:out_capacity]
+
+
 def make_plan(nnz_ct: np.ndarray, widths=DEFAULT_WIDTHS):
     """Host stage 2: assign rows to width bins. Returns {width: padded row
     index array} (padded with m to a power-of-two bucket) and the long-row
@@ -76,7 +106,7 @@ def spgemm_binned_host(
     """Full binned SpGEMM (host-orchestrated over per-bin device stages)."""
     from .kernels import bin_sort_compress
 
-    m, n = a.m, b.n
+    n = b.n
     dev = a.device
     out_capacity = out_capacity or prod_capacity
     nnz_ct_dev = nnz_upper_bound(a, b).long()
@@ -101,14 +131,21 @@ def spgemm_binned_host(
         prod_tail = pad_bucket(int(nnz_ct[tail].sum()))
         c_tail = spgemm_esc_padded(a_tail, b, prod_tail, prod_tail)
 
-    # exact per-row counts -> rowptr (rows padded with m are dropped)
+    return _assemble(a, b, pieces, c_tail, tail_dev, out_capacity)
+
+
+def _assemble(a: CSR, b: CSR, pieces, c_tail, tail_rows, out_capacity: int):
+    """Stage 4 of the binned paths: exact per-row counts -> rowptr -> every
+    bin's K2 output (placed by its ``pos``) and the tail's CSR (its rows
+    ``tail_rows``) to their place in C. Rows padded with m are dropped."""
+    m, n = a.m, b.n
+    dev = a.device
     counts_full = torch.zeros(m, dtype=torch.int64, device=dev)
     for rows_dev, _, _, counts, _ in pieces:
-        counts_full += _scatter(m, rows_dev, counts.long(), accumulate=True)
+        counts_full = _counts_add(counts_full, rows_dev, counts)
     if c_tail is not None:
-        counts_full += _scatter(m, tail_dev, c_tail.row_lengths().long(),
-                                accumulate=True)
-    rowptr = torch.cat([counts_full.new_zeros(1), torch.cumsum(counts_full, 0)])
+        counts_full = _counts_add(counts_full, tail_rows, c_tail.row_lengths())
+    rowptr = _rowptr_from_counts(counts_full).long()
 
     # stage 4: every bin's entries to their place in C
     tgts, cols, vals = [], [], []
@@ -123,7 +160,7 @@ def spgemm_binned_host(
         local_row_c = torch.clamp(local_row, max=c_tail.m - 1)
         offset = (torch.arange(c_tail.capacity, device=dev)
                   - c_tail.rowptr.long()[local_row_c])
-        orig = tail_dev[local_row_c]
+        orig = tail_rows[local_row_c]
         tgts.append(torch.where(local_row < c_tail.m, rowptr[orig] + offset,
                                 out_capacity))
         cols.append(c_tail.colidx)

@@ -1,22 +1,20 @@
 """Cost-model method dispatch for C = A @ B — the stage-2 analogue.
 
-``choose_method`` estimates the time of each ported numeric backend
-(chunked, tilepack, grouped, dia) and returns the argmin: host-side numpy
-passes over the structure at plan time (the dia estimate adds an
-``np.unique`` of every entry's diagonal).
+``choose_method`` estimates the time of each of the seven numeric backends
+(chunked, bsr, dia, dense, tilepack, grouped, hash) and returns the argmin:
+host-side numpy passes over the structure at plan time (the bsr and dia
+estimates add a sort over every entry).
 
 Every constant below was measured on a TPU v5e by the reference package
 (``benchmark_spgemm_using_csr_tpu/ops/dispatch.py``), not yet calibrated
 for the H100. They are kept as they are so that the dispatcher picks what
 the reference picks; an H100 calibration replaces them in a later change.
-The estimators of the other backends (bsr, dense, hash) come with their
-methods.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..sparse.csr import CSR, host_view
+from ..sparse.csr import CSR, host_view, sorted_unique
 from ..sparse.dia import dia_offsets_of
 
 # measured on a TPU v5e, not yet calibrated for the H100
@@ -33,6 +31,20 @@ DIA_FIXED_S = 0.02e-3
 DIA_NS_PER_SLOT = 0.018
 DIA_OP_OVERHEAD_S = 1.5e-6
 DIA_PLANE_BYTES = 512 << 20
+# BSR: per (8, 128) x (128, 128) block pair; the pair memory gate counts
+# the A side only, as the reference does (measured on a TPU v5e, not yet
+# calibrated for the H100)
+BSR_NS_PER_PAIR = 35.0
+BSR_FIXED_S = 0.03e-3
+BSR_PAIR_BYTES = 2 << 30
+# dense: matmul at the reference's float32 HIGHEST rate, a scatter-in per
+# nonzero, log-step extraction passes over C at HBM rate (measured on a TPU
+# v5e, not yet calibrated for the H100)
+DENSE_FIXED_S = 0.3e-3
+DENSE_MEM_BYTES = 1 << 30
+MXU_F32_HIGHEST_FLOPS = 3.0e13
+SCATTER_DESC_PER_S = 1.38e8
+HBM_BYTES_PER_S = 8.0e11
 
 
 def _mstats(x: CSR, _cache={}):
@@ -162,6 +174,78 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     return CHUNKED_FIXED_S + cost * 1e-9
 
 
+def estimate_bsr_s(
+    a: CSR, b: CSR | None = None, block_shape=(8, 128), bn: int = 128
+) -> float:
+    """Block-pair count model: A blocked at (bm, bk), B at (bk, bn), as
+    ops/bsr.spgemm_bsr blocks them. Infinite when a shape does not divide
+    or the A side of the pairs passes BSR_PAIR_BYTES."""
+    b = a if b is None else b
+    bm, bk = block_shape
+    if a.m % bm or a.n % bk or b.m % bk or b.n % bn:
+        return float("inf")
+    a_rowptr, nnz_a, _, a_cols = _mstats(a)
+    b_rowptr, nnz_b, _, b_cols = _mstats(b)
+    if not nnz_a or not nnz_b:
+        return 0.0
+    a_rows = np.repeat(np.arange(a.m, dtype=np.int64), np.diff(a_rowptr))
+    a_keys = sorted_unique((a_rows // bm) * (a.n // bk) + a_cols // bk)
+    b_rows = np.repeat(np.arange(b.m, dtype=np.int64), np.diff(b_rowptr))
+    b_keys = sorted_unique((b_rows // bk) * (b.n // bn) + b_cols // bn)
+    b_blen = np.bincount(b_keys // (b.n // bn), minlength=b.m // bk)
+    pairs = int(b_blen[a_keys % (a.n // bk)].sum())
+    if pairs * bm * bk * 4 > BSR_PAIR_BYTES:
+        return float("inf")
+    return BSR_FIXED_S + pairs * BSR_NS_PER_PAIR * 1e-9
+
+
+def estimate_dense_s(a: CSR, b: CSR | None = None) -> float:
+    """Dense model: the m * k * n matmul, the scatter of both operands and
+    ~log2(m * n) extraction passes over C. Infinite when the three dense
+    arrays pass DENSE_MEM_BYTES."""
+    b = a if b is None else b
+    m, k = a.shape
+    n = b.n
+    itemsize = a.vals.element_size()
+    if (m * k + k * n + m * n) * itemsize > DENSE_MEM_BYTES:
+        return float("inf")
+    _, nnz_a, *_ = _mstats(a)
+    _, nnz_b, *_ = _mstats(b)
+    matmul_s = 2.0 * m * k * n / MXU_F32_HIGHEST_FLOPS
+    scatter_s = (nnz_a + nnz_b) / SCATTER_DESC_PER_S
+    passes = max(int(m * n).bit_length() - 8, 1)  # holes unknown pre-plan
+    compact_s = passes * (m * n * (2 * itemsize + 1)) / HBM_BYTES_PER_S
+    return DENSE_FIXED_S + matmul_s + scatter_s + compact_s
+
+
+def estimate_hash_s(
+    a: CSR, b: CSR | None = None, tile_bytes_budget: int = 512 * 1024 * 1024
+) -> float:
+    """Dense-accumulator model (ops/hash.py): a scatter-add and an
+    occupancy scatter per product, an expansion gather per product, and per
+    row tile an (R, n) prefix sum and two compaction scatters. The
+    reference measured this path 75-120x slower than grouped on its TPU;
+    that verdict is the TPU's and is not carried over."""
+    b = a if b is None else b
+    rowptr, nnz, _, _, products = _stats(a, b)
+    if not nnz:
+        return 0.0
+    n = b.n
+    itemsize = a.vals.element_size()
+    r_tile = max(int(tile_bytes_budget // (n * (itemsize + 4 + 4))), 8)
+    m_ne = int((np.diff(rowptr) > 0).sum())
+    n_tiles = -(-m_ne // max(min(r_tile, m_ne), 1)) if m_ne else 0
+    slots = n_tiles * min(r_tile, max(m_ne, 1)) * n
+    return (
+        CHUNKED_FIXED_S * max(n_tiles, 1)  # one host-orchestrated pass a tile
+        + products / 1.30e8  # value scatter-add
+        + products / 1.94e8  # occupancy scatter
+        + products / 2.28e8  # product expansion gathers
+        + slots * 0.8e-9  # per-tile prefix sum
+        + 2 * slots / 1.4e8  # cols/vals compaction scatters
+    )
+
+
 def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
     """DIA gather-form model: nd_a * nd_b * n plane slots plus a per-term
     op overhead. Infinite where the reference refuses: more than 10 s of
@@ -200,7 +284,7 @@ def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
 def choose_method(
     a: CSR, b: CSR | None = None, plans: dict | None = None
 ) -> str:
-    """Pick the fastest ported backend for C = A @ B by cost model
+    """Pick the fastest backend for C = A @ B by cost model
     (B defaults to A — the reference's squaring benchmark mode).
     ``plans``, when given, receives the host plans the estimators built
     (key "tilepack"), so the caller need not build them again."""
@@ -211,8 +295,11 @@ def choose_method(
     est = {
         # the reference's order, which decides ties
         "chunked": estimate_chunked_s(a, b, products),
+        "bsr": estimate_bsr_s(a, b),
         "dia": estimate_dia_s(a, b),
+        "dense": estimate_dense_s(a, b),
         "tilepack": estimate_tilepack_s(a, b, plans),
         "grouped": estimate_grouped_s(a, b),
+        "hash": estimate_hash_s(a, b),
     }
     return min(est, key=est.get)

@@ -26,8 +26,8 @@ int64 with the sentinel 2**32 - 1 (the reference sorts uint32); values
 stay in their own dtype end to end (float64 is native on the card, so the
 reference's hi/lo float32 double-word lane is not carried); the tail is
 always the run-sum scan (no ``tail_mode``/``disp_bits``); per-slot A
-values come from a propagated entry id and one gather; the distributed
-``fixed`` statics and the sort-pin hook are not carried.
+values come from a propagated entry id and one gather; the sort-pin hook
+is not carried.
 """
 from __future__ import annotations
 
@@ -111,6 +111,8 @@ class GroupedSchedule:
 
 def make_grouped_plan(
     a: CSR, b: CSR, al: int | None = None, target_slots: int | None = None,
+    fixed: GroupedPlan | None = None,
+    force_scatter_set: bool | None = None,
 ) -> GroupedSchedule | None:
     """Host stage-2: chunk quantization -> greedy row->group packing.
 
@@ -119,10 +121,17 @@ def make_grouped_plan(
     matrix doesn't fit the regime (empty, values not float32/float64, a
     key that cannot fit 32 bits, or a structural product too large to
     count exactly on the host). The schedule's tensors live on a.device.
+
+    fixed: build this matrix's schedule under another plan's statics
+    (mode, cs, g_cap, capacities), so that one plan serves several row
+    blocks (ops/batched); the statics must cover this matrix (checked).
+    force_scatter_set: override the scatter-SET choice.
     """
     m, n = a.m, b.n
     if m == 0 or n == 0:
         return None
+    if fixed is not None:
+        al = fixed.al
     if a.vals.dtype not in (torch.float32, torch.float64):
         return None
     a_rowptr = host_view(a.rowptr)[: m + 1].astype(np.int64)
@@ -131,8 +140,10 @@ def make_grouped_plan(
     b_len = np.diff(b_rowptr)
     lens = b_len[host_view(a.colidx)[:nnz_a]]
     total = int(lens.sum())
-    if total == 0 or total > (1 << 27):
+    if fixed is None and (total == 0 or total > (1 << 27)):
         return None
+    if total > (1 << 27):
+        raise ValueError("fixed statics cannot cover this product stream")
 
     cbits = max(int(n - 1).bit_length(), 1)
     if cbits > 31:
@@ -156,8 +167,13 @@ def make_grouped_plan(
 
     # per-entry chunk counts and per-row chunk sums
     chunks_e = -(-lens // lanes)
-    n_zero = int((chunks_e == 0).sum())
-    scatter_set = n_zero <= max(nnz_a // 16, 64)
+    if fixed is not None:
+        scatter_set = fixed.scatter_set
+    elif force_scatter_set is not None:
+        scatter_set = force_scatter_set
+    else:
+        n_zero = int((chunks_e == 0).sum())
+        scatter_set = n_zero <= max(nnz_a // 16, 64)
     if scatter_set:
         chunks_e = np.maximum(chunks_e, 1)
     cce = np.concatenate([[0], np.cumsum(chunks_e)])
@@ -192,31 +208,43 @@ def make_grouped_plan(
             r = nb
         return np.asarray(bounds, np.int64)
 
-    if target_slots is None:
-        cap0 = int(
-            np.clip(total_chunks * lanes / 64, 1 << 13, 1 << 17)
-        ) // lanes
-    else:
-        cap0 = -(-target_slots // lanes)
-    best = None
-    for cap in {max(cap0, max_chunks), max(cap0 // 2, max_chunks),
-                max(cap0 // 4, max_chunks), max(cap0 * 2, max_chunks)}:
-        bounds = greedy(cap)
+    if fixed is not None:
+        bounds = greedy(fixed.cs)
         fills = cum_chunks[bounds[1:]] - cum_chunks[bounds[:-1]]
-        cs_try = int(fills.max(initial=1))
-        padded = pad_gentle(len(bounds) - 1, minimum=1) * cs_try
-        # depth-aware cost: every padded slot rides the whole pipeline plus
-        # a sort whose per-element cost grows with log2(width)^2
-        w_try = cs_try * lanes
-        sort_ns = 0.0035 * 0.5 * max(int(w_try - 1).bit_length(), 1) ** 2
-        cost = padded * (8.0 + sort_ns)
-        if best is None or cost < best[0]:
-            best = (cost, bounds, fills, cs_try)
-    _, bounds, fills, cs = best
+        cs = fixed.cs
+        if int(fills.max(initial=0)) > cs:
+            raise ValueError("fixed cs too small for this matrix")
+    else:
+        if target_slots is None:
+            cap0 = int(
+                np.clip(total_chunks * lanes / 64, 1 << 13, 1 << 17)
+            ) // lanes
+        else:
+            cap0 = -(-target_slots // lanes)
+        best = None
+        for cap in {max(cap0, max_chunks), max(cap0 // 2, max_chunks),
+                    max(cap0 // 4, max_chunks), max(cap0 * 2, max_chunks)}:
+            bounds = greedy(cap)
+            fills = cum_chunks[bounds[1:]] - cum_chunks[bounds[:-1]]
+            cs_try = int(fills.max(initial=1))
+            padded = pad_gentle(len(bounds) - 1, minimum=1) * cs_try
+            # depth-aware cost: every padded slot rides the whole pipeline
+            # plus a sort whose per-element cost grows with log2(width)^2
+            w_try = cs_try * lanes
+            sort_ns = 0.0035 * 0.5 * max(int(w_try - 1).bit_length(), 1) ** 2
+            cost = padded * (8.0 + sort_ns)
+            if best is None or cost < best[0]:
+                best = (cost, bounds, fills, cs_try)
+        _, bounds, fills, cs = best
     n_groups = len(bounds) - 1
     tile_of = np.searchsorted(bounds, np.arange(m), "right") - 1
     base_chunk = cum_chunks[:m] - cum_chunks[bounds[tile_of]]
-    g_cap = pad_gentle(n_groups, minimum=1)
+    if fixed is not None:
+        if n_groups > fixed.g_cap:
+            raise ValueError("fixed g_cap too small for this matrix")
+        g_cap = fixed.g_cap
+    else:
+        g_cap = pad_gentle(n_groups, minimum=1)
     first_rank_l = list(cum_ne[bounds[:-1]])
     rank = int(cum_ne[m])
     fill_end = np.zeros(g_cap, np.int64)
@@ -232,16 +260,6 @@ def make_grouped_plan(
         return None
 
     prod_cap = g_cap * cs * lanes
-    pat_a = a.to_scipy().astype(bool)
-    pat_b = pat_a if b is a else b.to_scipy().astype(bool)
-    nnz_c = int((pat_a @ pat_b).nnz)
-
-    abpad_cap = 0
-    if al:
-        abpad = int((-(-b_len // al) * al).sum())
-        # +al guarantees >= 1 all-sentinel table row past the aligned
-        # region for dummy chunks of zero-length B rows
-        abpad_cap = max(-(-pad_gentle(abpad + al) // al) * al, al)
 
     # per-row sorted product offset: group base + within-group VALID
     # product prefix (each row's valid products occupy a host-known span
@@ -261,7 +279,41 @@ def make_grouped_plan(
         [sorted_off, [int(prod_cap)]]
     ).astype(np.int32)
 
-    plan = GroupedPlan(
+    max_run = int(
+        1 << max(int(np.diff(a_rowptr).max(initial=1) - 1).bit_length(), 0)
+    )
+    if fixed is not None:
+        if max_run > fixed.max_run:
+            raise ValueError("fixed max_run too small for this matrix")
+        plan = fixed
+    else:
+        plan = _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap,
+                         cbits, lbits, max_run, scatter_set)
+    slot0 = (tile_of * cs + base_chunk).astype(np.int32)
+    dev = a.device
+    return GroupedSchedule(
+        plan=plan,
+        slot0=torch.from_numpy(slot0).to(dev),
+        first_rank=torch.from_numpy(first_rank).to(dev),
+        sorted_off=torch.from_numpy(sorted_off_full).to(dev),
+        fill_end=torch.from_numpy(fill_end.astype(np.int32)).to(dev),
+    )
+
+
+def _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap, cbits, lbits,
+              max_run, scatter_set) -> GroupedPlan:
+    """The plan's capacities that need the exact nnz(C) (a host structural
+    product) and the aligned table's size."""
+    pat_a = a.to_scipy().astype(bool)
+    pat_b = pat_a if b is a else b.to_scipy().astype(bool)
+    nnz_c = int((pat_a @ pat_b).nnz)
+    abpad_cap = 0
+    if al:
+        abpad = int((-(-b_len // al) * al).sum())
+        # +al guarantees >= 1 all-sentinel table row past the aligned
+        # region for dummy chunks of zero-length B rows
+        abpad_cap = max(-(-pad_gentle(abpad + al) // al) * al, al)
+    return GroupedPlan(
         k=lanes,
         al=al,
         cs=int(cs),
@@ -271,21 +323,8 @@ def make_grouped_plan(
         nnz_c=nnz_c,
         cbits=cbits,
         lbits=lbits,
-        max_run=int(
-            1 << max(
-                int(np.diff(a_rowptr).max(initial=1) - 1).bit_length(), 0
-            )
-        ),
+        max_run=max_run,
         scatter_set=bool(scatter_set),
-    )
-    slot0 = (tile_of * cs + base_chunk).astype(np.int32)
-    dev = a.device
-    return GroupedSchedule(
-        plan=plan,
-        slot0=torch.from_numpy(slot0).to(dev),
-        first_rank=torch.from_numpy(first_rank).to(dev),
-        sorted_off=torch.from_numpy(sorted_off_full).to(dev),
-        fill_end=torch.from_numpy(fill_end.astype(np.int32)).to(dev),
     )
 
 

@@ -1,4 +1,5 @@
-"""Sparse matrix containers: CSR / COO as frozen dataclasses of torch tensors.
+"""Sparse matrix containers: CSR / COO / BSR as frozen dataclasses of torch
+tensors.
 
 The conventions are those of ``benchmark_spgemm_using_csr_tpu.sparse.csr``,
 so buffers of the two packages compare directly:
@@ -268,9 +269,107 @@ class COO:
                    _to_device(v, device), tuple(shape))
 
 
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block CSR with dense (bm, bn) blocks.
+
+    blocks: (nblocks_capacity, bm, bn) dense value blocks, zero past nnzb.
+    rowptr/colidx index *block* rows/cols. Shape is in scalar elements and
+    must be divisible by the block size.
+    """
+
+    rowptr: torch.Tensor
+    colidx: torch.Tensor
+    blocks: torch.Tensor
+    shape: Shape
+
+    @property
+    def block_shape(self) -> Shape:
+        return tuple(self.blocks.shape[1:])
+
+    @property
+    def mb(self) -> int:
+        return self.shape[0] // self.blocks.shape[1]
+
+    @property
+    def nb(self) -> int:
+        return self.shape[1] // self.blocks.shape[2]
+
+    @property
+    def nnzb(self) -> torch.Tensor:
+        return self.rowptr[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rowptr.device
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        rowptr = host_view(self.rowptr).copy()
+        nnzb = int(rowptr[-1])
+        return sp.bsr_matrix(
+            (host_view(self.blocks)[:nnzb].copy(),
+             host_view(self.colidx)[:nnzb].copy(), rowptr),
+            shape=self.shape,
+        )
+
+    @staticmethod
+    def from_scipy(mat, block_shape=(8, 128), capacity: int | None = None,
+                   *, device) -> "BSR":
+        import scipy.sparse as sp
+
+        bm, bn = block_shape
+        mat = sp.bsr_matrix(mat.tocsr(), blocksize=(bm, bn))
+        nnzb = mat.indptr[-1]
+        cap = capacity if capacity is not None else pad_bucket(max(nnzb, 1))
+        blocks = np.zeros((cap, bm, bn), mat.data.dtype)
+        colidx = np.zeros(cap, np.int32)
+        blocks[:nnzb] = mat.data
+        colidx[:nnzb] = mat.indices
+        return BSR.from_numpy(mat.indptr, colidx, blocks, tuple(mat.shape),
+                              device=device)
+
+    @staticmethod
+    def from_numpy(rowptr, colidx, blocks, shape, *, device) -> "BSR":
+        """BSR from host buffers that already follow the conventions (the
+        bridge from the reference package: ``np.asarray`` of its buffers)."""
+        rowptr = np.array(rowptr, np.int32, order="C")
+        colidx = np.array(colidx, np.int32, order="C")
+        blocks = np.array(blocks, order="C")
+        if blocks.ndim != 3 or colidx.shape != blocks.shape[:1]:
+            raise ValueError(f"colidx {colidx.shape} != blocks "
+                             f"{blocks.shape[:1]} (blocks must be 3-d)")
+        out = BSR(
+            rowptr=_to_device(rowptr, device),
+            colidx=_to_device(colidx, device),
+            blocks=_to_device(blocks, device),
+            shape=(int(shape[0]), int(shape[1])),
+        )
+        _remember_host(out.rowptr, rowptr)
+        _remember_host(out.colidx, colidx)
+        _remember_host(out.blocks, blocks)
+        return out
+
+    def to_csr(self, capacity: int | None = None) -> CSR:
+        return CSR.from_scipy(self.to_scipy().tocsr(), capacity,
+                              device=self.device)
+
+
 # ---------------------------------------------------------------------------
 # Structural helpers shared by the whole package
 # ---------------------------------------------------------------------------
+
+
+def sorted_unique(x: np.ndarray) -> np.ndarray:
+    """``np.unique`` of a 1-D host array: one sort and a neighbour compare.
+    NumPy 2.3's ``np.unique`` builds a hash table first, which on arrays of
+    many distinct keys takes many times as long as the sort (chip_smoke.py
+    prints both on er_medium's block keys)."""
+    s = np.sort(x)
+    keep = np.ones(s.shape, bool)
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    return s[keep]
 
 
 def row_ids_from_rowptr(rowptr: torch.Tensor, capacity: int) -> torch.Tensor:

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .csr import CSR, INDEX_DTYPE, host_view, pad_bucket
+from .csr import CSR, INDEX_DTYPE, host_view, pad_bucket, sorted_unique
 
 Shape = Tuple[int, int]
 
@@ -39,7 +39,7 @@ def _entry_diagonals(a: CSR):
 
 def dia_offsets_of(a: CSR) -> np.ndarray:
     """The occupied diagonals of a CSR matrix, sorted (host, plan time)."""
-    return np.unique(_entry_diagonals(a)[1])
+    return sorted_unique(_entry_diagonals(a)[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +156,7 @@ class DIA:
         cols, occ = _entry_diagonals(a)
         vals = host_view(a.vals)[:len(cols)]
         if offsets is None:
-            offsets = np.unique(occ)  # dia_offsets_of(a), without a 2nd pass
+            offsets = sorted_unique(occ)  # dia_offsets_of(a), no 2nd pass
         else:
             offsets = np.asarray(sorted(offsets), dtype=np.int64)
         slots = np.searchsorted(offsets, occ)

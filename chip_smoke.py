@@ -51,13 +51,26 @@ Phases, each printing one line (or a few):
 8. ``spgemm(A, A, method="tiled")`` on poisson2d_256 and mc2depi_524k, and
    ``spgemm_binned_host`` on powerlaw_medium (whose rows over 512 products
    take the ESC tail): verified, K2 launched, the numeric median timed;
-9. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
+9. the paths without a kernel of their own, at full suite size, seed 0:
+   ``spgemm(A, A, method="auto")`` on dense_rows_2k (the dispatcher's bsr)
+   and dense_rows_8k (dense); the out-of-core ``spgemm_batched(A, A)`` on
+   dense_rows_8k at the default 64M-product stream budget (its per-block
+   method and block count); ``method="hash"`` and ``method="fused"`` on
+   powerlaw_medium (fused must launch K2); dense_rows_2k in float64 through
+   bsr and dense against x64 scipy at rtol/atol 1e-12; SpMV, SpMM (64
+   columns), SpAdd (A + A^T) and SpTRSV on mc2depi_524k; the BhSparse
+   lifecycle on er_medium. Each: verified against scipy, the host time of
+   its plan, the numeric median with the plan built, the whole call, and
+   ``torch.cuda.max_memory_allocated()`` since the path started; then the
+   CLI's ``--op spmv|spmm|spadd|sptrsv`` on mc2depi_524k, each in a
+   subprocess, each verified (sptrsv: its level and step counts);
+10. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
    suite:er_medium --json --runs 3``, in a subprocess.
 
-The launch counts of phases 7 and 8 are set to 0 just before each path is
+The launch counts of phases 7-9 are set to 0 just before each path is
 driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
-4-6 and the timing runs of phases 7-8 do not count.
+4-6 and the timing runs of phases 7-9 do not count.
 Any failure raises and the exit code is not 0. The line before the last
 is one JSON object on the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -89,7 +102,10 @@ EXPECTED = {
     "poisson2d_256": "dia",
     "stencil27_32": "dia",  # 27 diagonals, 729 terms
     "pdb_8k": "dia",  # 99 diagonals, 9801 terms
+    "dense_rows_2k": "bsr",  # phase 9
+    "dense_rows_8k": "dense",  # phase 9
 }
+MATMUL_PICKS = ("dense_rows_2k", "dense_rows_8k")  # driven in phase 9
 # main-path matrices whose run must launch the named kernel
 MUST_LAUNCH = {"er_medium": "tile_sort_merge",
                "mc2depi_524k": "dia_spgemm_fused",
@@ -103,6 +119,7 @@ F64_MATRICES = ("mc2depi_524k", "stencil27_32", "pdb_8k")  # K3 timed in f64
 K3_SPAN = 4096  # K3's contract, the reference's block bj: wider spans raise
 DIRECT_BAND, DIRECT_N = 300, 16384  # float64: K3's plan takes the direct mode
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # the CLI's float32 verify tolerances
+F64_TOL = dict(rtol=1e-12, atol=1e-12)  # float64 against x64 scipy
 K1_TOL = dict(rtol=1e-6, atol=1e-6)
 K2_TOL = K1_TOL  # the same addition tree as the plain version
 K1_WIDTHS = (128, 256, 512, 1024, 2048)  # tile_sort_merge.cu's launch switch
@@ -661,9 +678,9 @@ def drive(kernels, dia_kernels, run):
     return c, counts(kernels, dia_kernels)
 
 
-def dia_picks(port) -> None:
-    """The dispatcher's pick on every suite matrix (CSR on the card): the
-    members it sends to dia, which K3 takes where their span allows."""
+def suite_picks(port) -> None:
+    """The dispatcher's pick on every suite matrix (CSR on the card), each
+    printed beside its name; the EXPECTED ones must match."""
     from benchmark_spgemm_using_csr_tpu_torch.utils import generators
 
     picks = {}
@@ -671,27 +688,68 @@ def dia_picks(port) -> None:
         a = suite_csr(port, name)
         picks[name] = port.choose_method(a, a)
         del a
+    phase("choose_method on the suite: " + ", ".join(
+        f"{name} -> {method}" for name, method in picks.items()))
     dia = sorted(name for name, method in picks.items() if method == "dia")
     phase(f"choose_method sends {len(dia)} of {len(picks)} suite matrices "
           f"to dia: {', '.join(dia)}")
+    wrong = {n: picks[n] for n, want in EXPECTED.items() if picks[n] != want}
+    if wrong:
+        raise AssertionError(f"dispatcher picks differ from {EXPECTED}: "
+                             f"{wrong}")
+
+
+def unique_vs_sort(a) -> None:
+    """The bsr estimate's block keys through ``np.unique`` and through
+    ``sorted_unique`` (one sort), on the host clock."""
+    from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import (
+        host_view,
+        sorted_unique,
+    )
+
+    rowptr = host_view(a.rowptr).astype(np.int64)
+    rows = np.repeat(np.arange(a.m, dtype=np.int64), np.diff(rowptr))
+    keys = (rows // 8) * (a.n // 128) + host_view(a.colidx)[:len(rows)] // 128
+    times = {}
+    for fn in (np.unique, sorted_unique):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = fn(keys)
+            best = min(best, time.perf_counter() - t0)
+        times[fn.__name__] = (best * 1e3, got)
+    if not np.array_equal(times["unique"][1], times["sorted_unique"][1]):
+        raise AssertionError("sorted_unique differs from np.unique")
+    phase(f"er_medium's {keys.size} block keys ({times['unique'][1].size} "
+          f"distinct): np.unique {times['unique'][0]:.1f} ms, sorted_unique "
+          f"{times['sorted_unique'][0]:.1f} ms (numpy {np.__version__}, "
+          f"best of 3, host clock)")
 
 
 def main_path(port, kernels, dia_kernels, launches) -> None:
     """``spgemm(A, A, method="auto")`` on the EXPECTED matrices."""
     from benchmark_spgemm_using_csr_tpu_torch.ops.dispatch import (
+        estimate_bsr_s,
         estimate_dia_s,
     )
 
     for name, want_method in EXPECTED.items():
+        if name in MATMUL_PICKS:
+            continue
         a = suite_csr(port, name)
         products = port.spgemm_flops(a, a) // 2
         t0 = time.perf_counter()
         method = port.choose_method(a, a)
         t1 = time.perf_counter()
-        estimate_dia_s(a, a)  # its share of the pick (structure memoized)
+        estimate_dia_s(a, a)  # their shares of the pick (structure memoized)
+        t2 = time.perf_counter()
+        estimate_bsr_s(a, a)
         phase(f"{name}: choose_method {(t1 - t0) * 1e3:.1f} ms, of which "
-              f"the dia estimate {(time.perf_counter() - t1) * 1e3:.1f} ms "
-              f"(host clock)")
+              f"the dia estimate {(t2 - t1) * 1e3:.1f} ms and the bsr "
+              f"estimate {(time.perf_counter() - t2) * 1e3:.1f} ms (host "
+              f"clock)")
+        if name == "er_medium":
+            unique_vs_sort(a)
         if method != want_method:
             raise AssertionError(f"{name}: dispatcher chose {method}, "
                                  f"expected {want_method}")
@@ -745,6 +803,251 @@ def tiled_binned_paths(port, kernels, dia_kernels, launches) -> None:
           f"{tail.size} products={products} nnzC={int(c.rowptr[-1])} "
           f"launches={got} verified; median {res.median_s * 1e3:.3f} ms = "
           f"{res.gflops_median:.3f} GFlops")
+
+
+def path_report(kernels, dia_kernels, launches, label, run, plan, check,
+                flops: int) -> dict:
+    """One path of phase 9: ``run`` (the whole call) driven once with the
+    launch counts set to 0 just before and read just after, and the peak
+    device memory since its start; ``check`` holds its result against
+    scipy (and raises); ``plan()`` builds the host plan (timed on the host
+    clock) and returns the numeric phase alone, whose median is timed
+    (``plan`` None: the path has no separate plan, and the numeric phase
+    is the call); then the whole call's. Returns the launch counts."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c, got = drive(kernels, dia_kernels, run)
+    peak = torch.cuda.max_memory_allocated()
+    launches.update(got)
+    what = check(c)
+    del c
+    if plan is None:
+        plan_text = "no separate plan"
+        num = whole = bench(run, device="cuda", name=label, warmup=1, runs=5,
+                            flops=flops)
+    else:
+        t0 = time.perf_counter()
+        numeric = plan()
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        plan_text = f"plan {plan_ms:.1f} ms (host clock)"
+        num = bench(numeric, device="cuda", name=label, warmup=1, runs=5,
+                    flops=flops)
+        whole = bench(run, device="cuda", name=label, warmup=0, runs=2,
+                      flops=flops)
+    phase(f"{label}: {what}; launches={got}; {plan_text}; numeric median "
+          f"{num.median_s * 1e3:.3f} ms; whole call median "
+          f"{whole.median_s * 1e3:.3f} ms (of {whole.runs}); peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB")
+    torch.cuda.empty_cache()
+    return got
+
+
+def csr_check(want, tol=F32_TOL, zeros=True):
+    """A check for path_report: C against the scipy matrix ``want``."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+    )
+
+    def check(c):
+        assert_csr_equal(c, want, check_explicit_zeros=zeros, **tol)
+        return (f"nnzC={want.nnz} verified against scipy (rtol "
+                f"{tol['rtol']:g}, atol {tol['atol']:g})")
+    return check
+
+
+def library_paths(port, kernels, dia_kernels, launches) -> None:
+    """Phase 9: the paths without a kernel of their own, plus fused (K2)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from benchmark_spgemm_using_csr_tpu_torch.native.levels import have_native
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        batched,
+        bsr,
+        dense,
+        fused,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        spgemm_reference,
+    )
+
+    report = functools.partial(path_report, kernels, dia_kernels, launches)
+
+    def bsr_plan(a):
+        a_b = port.BSR.from_scipy(a.to_scipy(), (8, 128), device="cuda")
+        b_b = port.BSR.from_scipy(a.to_scipy(), (128, 128), device="cuda")
+        plan = bsr.make_bsr_plan(a_b, b_b)
+        phase(f"  bsr plan: {plan.pairs_cap} block pairs (capacity), "
+              f"{plan.out_blocks_cap} output blocks; the B gather holds "
+              f"{plan.pairs_cap * 128 * 128 * a.vals.element_size() / 2 ** 30:.3f} GiB")
+        return lambda: bsr.bsr_spgemm(a_b, b_b, plan)
+
+    def dense_plan(a):
+        plan = dense.make_dense_plan(a, a)
+        phase(f"  dense plan: mode {plan.mode}, nnzC {plan.nnz_c} of "
+              f"{plan.shape[0] * plan.shape[1]} slots")
+        return lambda: dense.spgemm_dense(a, a, plan)
+
+    # the dispatcher's matrix-multiply picks, through the main path's call
+    for name, make in (("dense_rows_2k", bsr_plan),
+                       ("dense_rows_8k", dense_plan)):
+        a = suite_csr(port, name)
+        products = port.spgemm_flops(a, a) // 2
+        report(f"{name} auto -> {EXPECTED[name]} (products={products})",
+               lambda: port.spgemm(a, a, method="auto"),
+               functools.partial(make, a),
+               csr_check(spgemm_reference(a, a), zeros=False),
+               2 * products)
+        del a
+
+    # the reference bench's out-of-core point: dense_rows_8k, 64M budget
+    a = suite_csr(port, "dense_rows_8k")
+    products = port.spgemm_flops(a, a) // 2
+
+    def fresh_batched():
+        batched._plan_cache.clear()
+        batched._total_cache.clear()
+        return port.spgemm_batched(a, a)
+
+    def batched_plan():
+        batched._plan_cache.clear()  # the drive's run cached it
+        plan = batched._cached_plan(a, a, 64 * 1024 * 1024, None)
+        phase(f"  spgemm_batched plan: method {plan.method}, "
+              f"{len(plan.blocks)} row blocks {plan.blocks}, modes "
+              f"{[mode for mode, _ in plan.flat_c]}")
+        return lambda: port.spgemm_batched(a, a)
+
+    report(f"dense_rows_8k spgemm_batched (out of core, products={products})",
+           fresh_batched, batched_plan, csr_check(spgemm_reference(a, a)),
+           2 * products)
+    del a
+
+    # hash and fused on powerlaw_medium
+    a = suite_csr(port, "powerlaw_medium")
+    products = port.spgemm_flops(a, a) // 2
+    report("powerlaw_medium hash", lambda: port.spgemm(a, a, method="hash"),
+           None, csr_check(spgemm_reference(a, a)), 2 * products)
+
+    def fused_plan():
+        plan = fused.make_plan(a, a)
+        phase(f"  fused plan: bins {plan.bin_rows} rows, tail "
+              f"{plan.tail_rows} rows, out_cap {plan.out_cap}")
+        return lambda: fused.spgemm_fused(a, a, plan)
+
+    got = report("powerlaw_medium fused",
+                 lambda: port.spgemm(a, a, method="fused"), fused_plan,
+                 csr_check(spgemm_reference(a, a)), 2 * products)
+    if got["bin_sort_compress"] <= 0:
+        raise AssertionError("fused on powerlaw_medium did not launch K2")
+    del a
+
+    # float64 through bsr and dense
+    s64 = generators.SUITE["dense_rows_2k"]().astype(np.float64)
+    a = port.CSR.from_scipy(s64, device="cuda")
+    products = port.spgemm_flops(a, a) // 2
+    for method, make in (("bsr", bsr_plan), ("dense", dense_plan)):
+        report(f"dense_rows_2k float64 {method}",
+               lambda: port.spgemm(a, a, method=method),
+               functools.partial(make, a),
+               csr_check(spgemm_reference(a, a), F64_TOL,
+                         zeros=method != "bsr"),
+               2 * products)
+    del a
+
+    # SpMV, SpMM, SpAdd, SpTRSV on mc2depi_524k
+    s = generators.SUITE["mc2depi_524k"]()
+    a = port.CSR.from_scipy(s, device="cuda")
+    nnz = s.nnz
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal(s.shape[1]).astype(np.float32)
+    xk_np = rng.standard_normal((s.shape[1], 64)).astype(np.float32)
+    x, xk = torch.from_numpy(x_np).cuda(), torch.from_numpy(xk_np).cuda()
+
+    def dense_check(want, tol):
+        def check(y):
+            np.testing.assert_allclose(y.cpu().numpy(), want, **tol)
+            return f"verified against scipy (rtol {tol['rtol']:g})"
+        return check
+
+    for op, fn, arg, want, k in (("spmv", port.spmv, x, s @ x_np, 1),
+                                 ("spmm", port.spmm, xk, s @ xk_np, 64)):
+        report(f"mc2depi_524k {op}", lambda: fn(a, arg), None,
+               dense_check(want, F32_TOL), 2 * nnz * k)
+    at = port.csr_transpose(a)
+
+    def spadd_plan():
+        plan = port.make_add_plan(a, at)
+        return lambda: port.spadd_planned(a, at, plan)
+
+    report("mc2depi_524k spadd (A + A^T)", lambda: port.spadd(a, at),
+           spadd_plan,
+           csr_check((s + s.T).tocsr(), dict(rtol=1e-3, atol=1e-3)), 2 * nnz)
+    tri = sp.tril(s, format="csr")
+    tri = (tri + sp.identity(s.shape[0], np.float32, format="csr")
+           * (np.abs(tri).sum(axis=1).max() + 1.0)).tocsr()
+    lower = port.CSR.from_scipy(tri, device="cuda")
+
+    def trsv_plan():
+        sched = port.make_trsv_plan(lower)
+        phase(f"  sptrsv plan: {sched.plan.n_levels} levels, "
+              f"{sched.plan.n_steps} steps of {sched.plan.chunk} rows, "
+              f"level scheduler "
+              f"{'C++' if have_native() else 'numpy fallback'}")
+        return lambda: port.sptrsv_planned(lower, x, sched)
+
+    report("mc2depi_524k sptrsv (lower)", lambda: port.sptrsv(lower, x),
+           trsv_plan,
+           dense_check(spsolve_triangular(tri, x_np, lower=True),
+                       dict(rtol=1e-3, atol=1e-3)),
+           2 * tri.nnz)
+    del a, at, lower
+
+    # the BhSparse lifecycle on er_medium
+    s = generators.SUITE["er_medium"]()
+    want = (s @ s).tocsr()
+    want.sort_indices()
+
+    def lifecycle():
+        h = port.BhSparse()
+        h.init_platform()
+        h.init_data(s.shape[0], s.shape[1], s.shape[1], s.indptr, s.indices,
+                    s.data, s.indptr, s.indices, s.data)
+        h.spgemm()
+        out = h.get_c()
+        h.free_mem()
+        return out
+
+    def bh_check(out):
+        rowptr, colidx, vals = out
+        np.testing.assert_array_equal(rowptr, want.indptr)
+        np.testing.assert_array_equal(colidx, want.indices)
+        np.testing.assert_allclose(vals, want.data, **F32_TOL)
+        return f"get_c verified against scipy (nnzC={want.nnz})"
+
+    report("er_medium BhSparse lifecycle", lifecycle, None, bh_check, 0)
+
+
+def cli_ops() -> None:
+    """The CLI's other ops on mc2depi_524k, each in a subprocess."""
+    for op in ("spmv", "spmm", "spadd", "sptrsv"):
+        out = subprocess.run(
+            [sys.executable, "-m", PKG, "suite:mc2depi_524k", "--op", op,
+             "--json", "--runs", "3"],
+            capture_output=True, text=True, timeout=600, check=True,
+        )
+        record = json.loads(out.stdout.strip().splitlines()[-1])
+        if record.get("verified") is not True:
+            raise AssertionError(f"CLI --op {op} not verified: {record}")
+        extra = (f", {record['n_levels']} levels, {record['n_steps']} steps"
+                 if op == "sptrsv" else "")
+        phase(f"CLI --op {op} suite:mc2depi_524k: verified, mean "
+              f"{record['mean_s'] * 1e3:.3f} ms, min "
+              f"{record['min_s'] * 1e3:.3f} ms, {record['gflops']:.3f} "
+              f"GFlops on {record['device']}{extra}")
 
 
 def cli_run() -> None:
@@ -816,16 +1119,18 @@ def main() -> int:
     k3["max_abs_err"] = max([k3_err] + [v["max_abs_err"]
                                         for v in k3_all.values()])
     del flush
-    # 7-8. the paths; only their launches count
-    dia_picks(port)
+    # 7-9. the paths; only their launches count
+    suite_picks(port)
     launches = collections.Counter()
     main_path(port, kernels, dia_kernels, launches)
     tiled_binned_paths(port, kernels, dia_kernels, launches)
+    library_paths(port, kernels, dia_kernels, launches)
     phase(f"launches on the paths: {dict(launches)}")
     for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused"):
         if launches[name] <= 0:
             raise AssertionError(f"the paths never launched {name}")
-    # 9. the CLI
+    cli_ops()
+    # 10. the CLI
     cli_run()
 
     print(json.dumps({"kernels": [

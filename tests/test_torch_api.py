@@ -14,12 +14,14 @@ import benchmark_spgemm_using_csr_tpu as J
 from benchmark_spgemm_using_csr_tpu.utils import generators as jgen
 
 import benchmark_spgemm_using_csr_tpu_torch as T
+from benchmark_spgemm_using_csr_tpu.ops import dispatch as jdispatch
 from benchmark_spgemm_using_csr_tpu_torch import cli
-from benchmark_spgemm_using_csr_tpu_torch.api import NOT_PORTED
+from benchmark_spgemm_using_csr_tpu_torch.ops import dispatch as tdispatch
 
 torch.set_num_threads(2)
 
-PORTED = {"chunked", "tilepack", "grouped", "dia"}
+METHODS = ("auto", "chunked", "grouped", "tilepack", "bsr", "dia", "dense",
+           "tiled", "fused", "esc", "binned", "hash")
 
 
 def bridge(j):
@@ -47,22 +49,36 @@ def test_auto_same_csr_as_reference(name):
                                rtol=1e-4, atol=1e-5)
 
 
-# the suite's ESC points at full size: choose_method is host-only numpy
+# suite points at full size (choose_method is host-only numpy): the ESC
+# points, bsr's and dense's, and the block / stencil / hub regimes
 DISPATCH = ["er_small", "powerlaw_small", "poisson2d_64", "er_medium",
-            "powerlaw_medium", "circuit_64k"]
+            "powerlaw_medium", "circuit_64k", "dense_rows_2k",
+            "dense_rows_8k", "banded_16k", "stencil27_32", "hubrows_32k"]
+PICKS = {"dense_rows_2k": "bsr", "dense_rows_8k": "dense"}
 
 
 @pytest.mark.parametrize("name", DISPATCH)
 def test_choose_method_agrees(name):
-    sa = jgen.SUITE[name]()
-    ja = J.CSR.from_scipy(sa)
+    ja = J.CSR.from_scipy(jgen.SUITE[name]())
     ta = bridge(ja)
     want = J.choose_method(ja, ja)
-    got = T.choose_method(ta, ta)
-    if want in PORTED:
-        assert got == want
-    else:  # the reference picks a method this package does not have yet
-        assert got in PORTED
+    assert T.choose_method(ta, ta) == want
+    assert want == PICKS.get(name, want)
+
+
+@pytest.mark.parametrize("name", ["dense_rows_2k", "dense_rows_8k",
+                                  "banded_16k", "stencil27_32",
+                                  "hubrows_32k", "er_small"])
+def test_bsr_dense_hash_estimates_equal_reference(name):
+    ja = J.CSR.from_scipy(jgen.SUITE[name]())
+    ta = bridge(ja)
+    for est in ("estimate_bsr_s", "estimate_dense_s", "estimate_hash_s"):
+        want = getattr(jdispatch, est)(ja, ja)
+        got = getattr(tdispatch, est)(ta, ta)
+        if np.isinf(want):
+            assert np.isinf(got), est
+        else:
+            assert got == pytest.approx(want, rel=1e-12), est
 
 
 def test_auto_builds_the_tilepack_plan_once(monkeypatch):
@@ -91,15 +107,8 @@ def test_auto_builds_the_tilepack_plan_once(monkeypatch):
 
 def test_choose_method_rectangular():
     sa, sb = jgen.rect_pair(600, 300, 500, seed=7)
-    assert T.choose_method(T.CSR.from_scipy(sa, device="cpu"),
-                           T.CSR.from_scipy(sb, device="cpu")) in PORTED
-
-
-@pytest.mark.parametrize("method", sorted(NOT_PORTED))
-def test_unported_methods_raise(method):
-    a = T.CSR.from_scipy(jgen.poisson2d(8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.spgemm(a, a, method=method)
+    ja, jb = J.CSR.from_scipy(sa), J.CSR.from_scipy(sb)
+    assert T.choose_method(bridge(ja), bridge(jb)) == J.choose_method(ja, jb)
 
 
 def test_bad_calls_raise():
@@ -128,8 +137,7 @@ def test_cli_json_on_cpu(capsys, dtype):
 
 
 @pytest.mark.parametrize("args", [
-    ["--op", "spmv"], ["--mesh", "2"], ["--roofline"],
-    ["--dtype", "bfloat16"], ["--method", "bsr"],
+    ["--mesh", "2"], ["--roofline"], ["--dtype", "bfloat16"],
 ])
 def test_cli_unported_options_exit(args):
     with pytest.raises(SystemExit, match="not ported"):
@@ -145,6 +153,41 @@ def test_cli_slice_b_and_d_methods_on_cpu(capsys, method):
     assert record["method"] == method and record["m"] == 24 * 24
 
 
+@pytest.mark.parametrize("method", ["bsr", "dense", "hash", "fused"])
+def test_cli_slice_c_and_d_methods_on_cpu(capsys, method):
+    rc = cli.main(["gen:banded:256", "--device", "cpu", "--json", "--runs",
+                   "1", "--warmup", "0", "--method", method])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["verified"] is True
+    assert record["method"] == method and record["m"] == 256
+
+
+@pytest.mark.parametrize("op", ["spmv", "spmm", "spadd", "sptrsv"])
+def test_cli_ops_on_cpu(capsys, tmp_path, op):
+    out = tmp_path / "results.jsonl"
+    rc = cli.main(["gen:poisson2d:24", "--device", "cpu", "--json", "--runs",
+                   "1", "--warmup", "0", "--op", op, "--spmm-k", "8",
+                   "--out", str(out)])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["verified"] is True
+    assert record["op"] == op and record["device"] == "cpu"
+    assert record["m"] == record["n"] == 24 * 24
+    for key in ("mean_s", "min_s", "gflops"):
+        assert key in record
+    if op == "sptrsv":
+        assert record["n_levels"] >= 1 and record["n_steps"] >= 1
+    written = json.loads(out.read_text().splitlines()[-1])
+    assert written["op"] == op and "ts" in written
+
+
+def test_cli_text_output_of_an_op(capsys):
+    rc = cli.main(["gen:poisson2d:12", "--device", "cpu", "--runs", "1",
+                   "--warmup", "0", "--op", "sptrsv"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert rc == 0 and line.startswith("sptrsv: gen:poisson2d:12")
+    assert "levels" in line and line.endswith("verify PASS")
+
+
 def test_cli_cuda_without_a_card_fails():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -152,8 +195,29 @@ def test_cli_cuda_without_a_card_fails():
         cli.main(["suite:er_small"])
 
 
+def test_cli_accepts_every_reference_method():
+    from benchmark_spgemm_using_csr_tpu import cli as jcli
+
+    def choices(parser, flag):
+        return next(a.choices for a in parser._actions
+                    if flag in a.option_strings)
+
+    for flag in ("--method", "--op", "--dtype"):
+        assert choices(cli.build_parser(), flag) == choices(
+            jcli.build_parser(), flag)
+    assert tuple(choices(cli.build_parser(), "--method")) == METHODS
+
+
+NEW_MODULES = ("compat", "ops.bsr", "ops.dense", "ops.hash", "ops.fused",
+               "ops.batched", "ops.spmv", "ops.spadd", "ops.sptrsv",
+               "parallel.dist", "native.levels", "utils.results")
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, benchmark_spgemm_using_csr_tpu_torch as p; "
+    imports = "; ".join(f"import benchmark_spgemm_using_csr_tpu_torch.{m}"
+                        for m in NEW_MODULES)
+    code = (f"import sys, benchmark_spgemm_using_csr_tpu_torch as p; "
+            f"{imports}; "
             "p.spgemm; print(sorted(m for m in sys.modules "
             "if m in ('jax', 'benchmark_spgemm_using_csr_tpu') "
             "or m.startswith(('jax.', 'benchmark_spgemm_using_csr_tpu.'))))")

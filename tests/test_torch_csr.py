@@ -163,3 +163,13 @@ def test_mtx_roundtrip_matches_reference(tmp_path, field):
     # the numpy path reads the same matrix as the native one
     u = tmtx._read_mtx_numpy(path)
     assert (u != t).nnz == 0
+
+
+@pytest.mark.parametrize("size,high", [(0, 1), (1, 5), (1000, 10),
+                                       (5000, 1 << 40)])
+def test_sorted_unique_is_np_unique(size, high):
+    x = np.random.default_rng(size).integers(-high, high, size=size)
+    got = tcsr.sorted_unique(x)
+    want = np.unique(x)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
