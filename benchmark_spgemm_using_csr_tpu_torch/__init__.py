@@ -10,8 +10,10 @@ DIA path (``sparse/dia.py``, ``ops/dia.py``, kernel K3
 tiled, binned and fused paths (kernel K2 ``ops/kernels.bin_sort_compress``)
 are reached by name; the bsr and dense paths (batched dense products) carry
 block-dense and near-dense products, and the hash path and the out-of-core
-``spgemm_batched`` complete the SpGEMM methods. SpMV/SpMM, SpAdd, SpTRSV
-and the ``BhSparse`` lifecycle facade sit on the same containers. The
+``spgemm_batched`` complete the SpGEMM methods. SpMV/SpMM, SpAdd, SpTRSV,
+structure reuse (``ops/reuse``, ``ops/aggrap``) and the ``BhSparse``
+lifecycle facade sit on the same containers, and the ``models`` subpackage
+(AMG, ILU0) on top of them. The
 reference package stays the specification: the containers, plans and
 outputs follow its conventions buffer for buffer.
 
@@ -44,7 +46,9 @@ from .ops.batched import make_batched_plan, spgemm_batched
 from .ops.spmv import bsr_spmm, spmm, spmv, spmv_t
 from .ops.spadd import make_add_plan, spadd, spadd_planned
 from .ops.sptrsv import ilu0_apply_exact, make_trsv_plan, sptrsv, sptrsv_planned
+from .ops.reuse import make_numeric_plan, spgemm_numeric
 from .compat import BhSparse
+from . import models
 
 __version__ = "0.1.0"
 
@@ -94,5 +98,8 @@ __all__ = [
     "sptrsv",
     "sptrsv_planned",
     "ilu0_apply_exact",
+    "make_numeric_plan",
+    "spgemm_numeric",
     "BhSparse",
+    "models",
 ]

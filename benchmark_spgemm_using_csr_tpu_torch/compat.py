@@ -12,6 +12,10 @@ inside, everything routes through the functional facade (api.spgemm).
 >>> nnz_c = h.get_nnz_c()
 >>> rowptr_c, colidx_c, vals_c = h.get_c()
 >>> h.free_mem()
+
+``amg_hierarchy_from_levels`` carries an AMG hierarchy across from the
+reference package: its levels as host arrays in, the port's
+``models.amg.AMGHierarchy`` out.
 """
 from __future__ import annotations
 
@@ -90,3 +94,21 @@ class BhSparse:
 
     def free_mem(self) -> None:
         self._a = self._b = self._c = None
+
+
+def amg_hierarchy_from_levels(levels, *, device):
+    """The port's AMGHierarchy from the reference package's levels.
+
+    levels: one (a, p) pair per level, each a ``(rowptr, colidx, vals,
+    shape)`` tuple of host arrays (``np.asarray`` of the reference CSR's
+    buffers, as its ``AMGHierarchy.save`` writes them), p None on the
+    finest level. R is P's transpose, as ``AMGHierarchy.load`` makes it."""
+    from .models.amg import AMGHierarchy, Level
+    from .sparse.csr import csr_transpose
+
+    out = []
+    for a, p in levels:
+        a = CSR.from_numpy(*a, device=device)
+        p = None if p is None else CSR.from_numpy(*p, device=device)
+        out.append(Level(a=a, p=p, r=None if p is None else csr_transpose(p)))
+    return AMGHierarchy(out)

@@ -11,10 +11,13 @@ bounded by the largest block's working set.
 - **Host planning once per structure** (cached on the structure buffers):
   C's exact structure is the concatenation of per-block pattern products,
   so the output rowptr/colidx live in the plan as device tensors and the
-  value extraction positions of each block are static.
+  value extraction positions of each block are static. The dense blocks'
+  extraction payloads, the largest part of the plan, stay on the host
+  (pinned for a CUDA device) and go up at their block's turn.
 - **Per call**: the blocks run one after another (the reference's
-  ``lax.scan`` over dense blocks becomes this loop), and the values are
-  concatenated once.
+  ``lax.scan`` over dense blocks becomes this loop); each block writes its
+  exact values into C's value buffer, and its temporaries go before the
+  next block starts.
 - **as_scipy** (C larger than device memory): values fetched once after
   all blocks ran, structure from the host plan.
 """
@@ -76,7 +79,8 @@ class BatchedPlan:
     blk_rowptr: tuple  # per-block (rows_cap + 1,) rowptr
     blk_colidx: tuple  # per-block (nnz_cap,) colidx
     blk_rows_e: tuple  # per-block (nnz_cap,) entry row ids (pad: rows_cap)
-    # dense method: per-block ('full' | 'shift' | 'gather', payload)
+    # dense method: per-block ('full' | 'shift' | 'gather', payload), the
+    # payload host tensors uploaded at the block's turn
     flat_c: tuple = ()
     cap_c_u: int = 0  # unified per-block C capacity
     # grouped method: per-block GroupedSchedule under unified statics
@@ -192,6 +196,10 @@ def make_batched_plan(
     def on_dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+    def on_host(x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return t.pin_memory() if torch.device(dev).type == "cuda" else t
+
     plan = BatchedPlan(
         method=method,
         blocks=tuple(blocks),
@@ -229,11 +237,11 @@ def make_batched_plan(
                 kept = np.zeros(slots, np.bool_)
                 kept[flat] = True
                 disp = (np.cumsum(~kept) - ~kept).astype(np.int32)
-                extract.append(("shift", (on_dev(kept), on_dev(disp))))
+                extract.append(("shift", (on_host(kept), on_host(disp))))
             else:
                 f = np.full(cap_c_u, slots, np.int64)  # pad -> guard slot
                 f[: pc.nnz] = flat
-                extract.append(("gather", on_dev(f)))
+                extract.append(("gather", on_host(f)))
         plan.flat_c = tuple(extract)
         plan.cap_c_u = cap_c_u
     elif method == "grouped":
@@ -341,18 +349,21 @@ def _dense_block(vals_pad, s0, rows_e, cols_e, db, mode, payload, *,
                  rows_cap, nnz_cap, kdim):
     """One dense block: densify the A row slice (padding entries target a
     guard row), matmul against the dense B, extract C's values at the
-    block's static structural positions."""
+    block's static structural positions (the payload is uploaded here)."""
     v = vals_pad[s0: s0 + nnz_cap]
     da = torch.zeros((rows_cap + 1, kdim), dtype=v.dtype, device=v.device)
     da[rows_e.long(), cols_e.long()] = v
     with ieee_fp32():
         flat = (da[:rows_cap] @ db).reshape(-1)
+    del da
     if mode == "full":  # block C structurally full
         return flat
     if mode == "shift":
-        return _shift_compact(*payload, [flat])[0]
+        kept, disp = (x.to(flat.device, non_blocking=True) for x in payload)
+        return _shift_compact(kept, disp, [flat])[0]
+    pos = payload.to(flat.device, non_blocking=True)
     guard = torch.cat([flat, flat.new_zeros(1)])
-    return guard[torch.clamp(payload, 0, flat.shape[0])]
+    return guard[torch.clamp(pos, 0, flat.shape[0])]
 
 
 def spgemm_batched(
@@ -379,32 +390,32 @@ def spgemm_batched(
     # block values: slices of A's values, padded so the last block's slice
     # stays in bounds
     vals_pad = torch.cat([a.vals, a.vals.new_zeros(plan.nnz_cap)])
-    blk_vals = []
+    vals = torch.zeros(plan.cap_c, dtype=a.vals.dtype, device=a.device)
     if plan.method == "dense":
         db = csr_to_dense(b)
-        for i, (mode, payload) in enumerate(plan.flat_c):
-            blk_vals.append(_dense_block(
-                vals_pad, plan.slice0[i], plan.blk_rows_e[i],
-                plan.blk_colidx[i], db, mode, payload,
-                rows_cap=plan.rows_cap, nnz_cap=plan.nnz_cap, kdim=a.n,
-            ))
     else:
         from .grouped import spgemm_grouped
-
-        for i in range(len(plan.blocks)):
-            s0 = plan.slice0[i]
+    off = 0
+    for i, nnz_blk in enumerate(plan.nnz_c_blk):
+        s0 = plan.slice0[i]
+        if plan.method == "dense":
+            mode, payload = plan.flat_c[i]
+            blk = _dense_block(
+                vals_pad, s0, plan.blk_rows_e[i], plan.blk_colidx[i], db,
+                mode, payload, rows_cap=plan.rows_cap, nnz_cap=plan.nnz_cap,
+                kdim=a.n,
+            )
+        else:
             a_blk = CSR(plan.blk_rowptr[i], plan.blk_colidx[i],
                         vals_pad[s0: s0 + plan.nnz_cap], (plan.rows_cap, a.n))
             if plan.method == "grouped":
-                c_blk = spgemm_grouped(a_blk, b, plan.grouped_scheds[i])
+                blk = spgemm_grouped(a_blk, b, plan.grouped_scheds[i]).vals
             else:
-                c_blk = spgemm_chunked(a_blk, b, plan.chunked_plan)
-            blk_vals.append(c_blk.vals)
-
-    # assembly: one concatenation of each block's exact values
-    vals = torch.zeros(plan.cap_c, dtype=a.vals.dtype, device=a.device)
-    vals[: plan.nnz_c] = torch.cat(
-        [v[:s] for v, s in zip(blk_vals, plan.nnz_c_blk)])
+                blk = spgemm_chunked(a_blk, b, plan.chunked_plan).vals
+        # only the block's exact values outlive it
+        vals[off: off + nnz_blk] = blk[:nnz_blk]
+        off += nnz_blk
+        del blk
     if as_scipy:
         import scipy.sparse as sp
 

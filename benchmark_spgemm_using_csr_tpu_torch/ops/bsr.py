@@ -7,17 +7,20 @@ into a batched matmul:
 1. **block-pair expansion**: every (A block, B block) pair whose inner
    block index matches, through one packed (cap_e, 3) per-entry table
    (A block row, B row start, first pair) gathered once per pair;
-2. **the products**: ``torch.bmm`` of the gathered (P, bm, bk) and
-   (P, bk, bn) blocks, in IEEE float32 whatever the caller's TF32 setting
-   (float64 in native float64);
-3. **duplicate merge** by (block row, block col): a sort of the pair
-   metadata (never the payloads), then an index-add of the product blocks
-   into their output slots; dropped pairs go to a dump slot past the end.
+2. **duplicate merge** by (block row, block col): a sort of the pair
+   metadata (never the payloads) gives every pair its output slot;
+   padding pairs go to a dump slot past the end;
+3. **the products**, streamed over chunks of pair ids: each chunk gathers
+   its (p, bm, bk) A blocks and (p, bk, bn) B blocks, multiplies them with
+   ``torch.bmm`` in IEEE float32 whatever the caller's TF32 setting
+   (float64 in native float64), and index-adds the products into their
+   output slots.
 
 Zeros inside blocks are multiplied too, so the work grows with the inverse
 block density; the dispatcher weighs that (ops/dispatch.estimate_bsr_s).
-The gathered B blocks cost bk * bn * itemsize bytes a pair (64 KB in
-float32 at (128, 128)) at the peak of a call.
+A chunk holds at most ``BSR_CHUNK_BYTES`` of gathered B blocks (bk * bn *
+itemsize bytes a pair, 64 KB in float32 at (128, 128)), whatever the pair
+count; in the reference package XLA fuses the gather into the product.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ from ..sparse.csr import (
 )
 from .chunked import _ones, _scatter, pad_gentle
 from .dense import ieee_fp32
+
+BSR_CHUNK_BYTES = 512 << 20  # gathered B blocks a chunk of pairs may hold
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +102,7 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     brow = torch.where(pair_valid, meta[:, 0], mb)
     bcol = torch.where(pair_valid, b.colidx.long()[b_idx], 0)
 
-    # ---- 2. the block products --------------------------------------------
-    with ieee_fp32():
-        prod = torch.bmm(a.blocks[src], b.blocks[b_idx])  # (P, bm, bn)
-    prod = torch.where(pair_valid[:, None, None], prod, 0)
-
-    # ---- 3. merge duplicates by (brow, bcol): a metadata sort ------------
+    # ---- 2. merge duplicates by (brow, bcol): a metadata sort ------------
     limit = mb * nb
     key_s, pid_s = torch.sort(torch.where(pair_valid, brow * nb + bcol, limit))
     prev = torch.cat([key_s.new_full((1,), -1), key_s[:-1]])
@@ -112,7 +112,18 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     n_uniq = is_head.sum()
     slot = torch.empty_like(pid_s)
     slot[pid_s] = torch.where(live, uniq_s, cap_out)  # back to pair order
-    out_blocks = _scatter(cap_out, slot, prod, accumulate=True)
+
+    # ---- 3. the block products, a chunk of pairs at a time (padding pairs
+    # land in the dump slot) ---------------------------------------------
+    chunk = max(BSR_CHUNK_BYTES // (bk * bn * b.blocks.element_size()), 1)
+    out = torch.zeros((cap_out + 1, bm, bn), dtype=a.blocks.dtype, device=dev)
+    for lo in range(0, P, chunk):
+        hi = min(lo + chunk, P)
+        with ieee_fp32():
+            prod = torch.bmm(a.blocks[src[lo:hi]], b.blocks[b_idx[lo:hi]])
+        _scatter(cap_out, slot[lo:hi], prod, accumulate=True, out=out)
+        del prod
+    out_blocks = out[:cap_out]
 
     # output structure: heads carry (brow, bcol) at slot uniq_s
     head_slot = torch.where(is_head, uniq_s, cap_out)
@@ -125,7 +136,7 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     return BSR(
         rowptr=rowptr.to(INDEX_DTYPE),
         colidx=out_colidx.to(INDEX_DTYPE),
-        blocks=out_blocks.to(a.blocks.dtype),
+        blocks=out_blocks,
         shape=(a.shape[0], b.shape[1]),
     )
 

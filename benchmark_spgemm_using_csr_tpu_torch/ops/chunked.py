@@ -248,12 +248,13 @@ def make_chunked_plan(
 
 
 def _scatter(size: int, idx: torch.Tensor, src: torch.Tensor, *,
-             accumulate: bool) -> torch.Tensor:
+             accumulate: bool, out: torch.Tensor | None = None) -> torch.Tensor:
     """``zeros(size).at[idx].add/set(src, mode="drop")`` along the first
     axis: targets outside [0, size) go to one dump slot past the end, which
-    is cut off."""
-    buf = torch.zeros((size + 1, *src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
+    is cut off. ``out``, a (size + 1, ...) buffer, takes the scatter in
+    place of a new zero buffer (a stream of chunks adding into one)."""
+    buf = out if out is not None else torch.zeros(
+        (size + 1, *src.shape[1:]), dtype=src.dtype, device=src.device)
     idx = idx.long()
     idx = torch.where((idx >= 0) & (idx < size), idx, size)
     if accumulate:

@@ -57,6 +57,12 @@ def _remember_host(dev, host) -> None:
     _HOST_MIRROR[id(dev)] = (host, dev)
 
 
+def clear_host_mirror() -> None:
+    """Drop every memoized host view, and with it the device tensors the
+    memo holds alive (up to 257 of them, whatever their callers freed)."""
+    _HOST_MIRROR.clear()
+
+
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (>= 1). Used for growth-bucket padding."""
     x = max(int(x), 1)
@@ -176,6 +182,34 @@ class CSR:
         _remember_host(out.colidx, colidx)
         _remember_host(out.vals, vals)
         return out
+
+    @staticmethod
+    def from_dense(arr, capacity: int | None = None, *, device) -> "CSR":
+        import scipy.sparse as sp
+
+        return CSR.from_scipy(sp.csr_matrix(np.asarray(arr)), capacity,
+                              device=device)
+
+    def todense(self) -> np.ndarray:
+        return np.asarray(self.to_scipy().todense())
+
+    # ---- persistence: the reference package's npz layout, so a file
+    # either package saves loads in the other --------------------------------
+    def save(self, path: str) -> None:
+        np.savez(
+            path,
+            rowptr=host_view(self.rowptr),
+            colidx=host_view(self.colidx),
+            vals=host_view(self.vals),
+            shape=np.asarray(self.shape),
+        )
+
+    @staticmethod
+    def load(path: str, *, device) -> "CSR":
+        with np.load(path) as z:
+            return CSR.from_numpy(z["rowptr"], z["colidx"], z["vals"],
+                                  tuple(int(s) for s in z["shape"]),
+                                  device=device)
 
     def to_numpy(self):
         """(rowptr, colidx, vals) as host numpy copies."""

@@ -61,16 +61,34 @@ Phases, each printing one line (or a few):
    columns), SpAdd (A + A^T) and SpTRSV on mc2depi_524k; the BhSparse
    lifecycle on er_medium. Each: verified against scipy, the host time of
    its plan, the numeric median with the plan built, the whole call, and
-   ``torch.cuda.max_memory_allocated()`` since the path started; then the
+   ``torch.cuda.max_memory_allocated()`` since the path started, absolute
+   and above the start (the host mirror of ``sparse/csr.host_view``, which
+   holds the device tensors it mirrors, is cleared first); then the
    CLI's ``--op spmv|spmm|spadd|sptrsv`` on mc2depi_524k, each in a
    subprocess, each verified (sptrsv: its level and step counts);
-10. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
+10. the AMG / ILU0 solver path, seed 0, float32, each line beside the
+   card's name and power limit: on poisson2d_256 (the reference bench's
+   rap_poisson2d_256 cell, P from ``aggregation_prolongator``) R·A·P by the
+   chained ``galerkin_product`` (two ``spgemm(auto)``, the dispatcher's
+   picks printed), by ``make_triple_plan`` + ``spgemm_triple`` and by
+   ``make_aggrap_plan`` + ``rap_aggregation``, each against scipy with its
+   host plan, numeric median and whole call; on mc2depi_524k
+   ``build_hierarchy`` with and without smoothing (level sizes, setup split
+   into aggregation, smoothing and R·A·P), ``numeric_refresh`` with A's
+   values times 1.5 through the triple plan (smoothed P) and through
+   aggrap (unsmoothed P), every level against scipy, ``solve`` (its
+   residual history, the true residual in float64 on the host, the
+   V-cycle's median), ILU0 (plan, sweeps, residual on A's pattern) and
+   Jacobi-applied ILU0-PCG against plain CG; exact-ILU0 PCG on
+   poisson2d_256. Each with its peak device memory and the K1/K2/K3
+   launches of its run;
+11. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
    suite:er_medium --json --runs 3``, in a subprocess.
 
-The launch counts of phases 7-9 are set to 0 just before each path is
+The launch counts of phases 7-10 are set to 0 just before each path is
 driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
-4-6 and the timing runs of phases 7-9 do not count.
+4-6 and the timing runs of phases 7-10 do not count.
 Any failure raises and the exit code is not 0. The line before the last
 is one JSON object on the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -805,6 +823,35 @@ def tiled_binned_paths(port, kernels, dia_kernels, launches) -> None:
           f"{res.gflops_median:.3f} GFlops")
 
 
+class Peak:
+    """Peak device memory of one item: ``start()`` clears the host mirror
+    (sparse/csr.host_view holds the device tensors it mirrors, whatever
+    their callers freed) and resets the peak; ``text()`` reads it, absolute
+    and above the start."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def start(self):
+        from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import (
+            clear_host_mirror,
+        )
+
+        clear_host_mirror()
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.base = torch.cuda.memory_allocated()
+        return self
+
+    def text(self) -> str:
+        if not self.cuda:
+            return "peak device memory not measured (no card)"
+        peak = torch.cuda.max_memory_allocated()
+        return (f"peak device memory {peak / 2 ** 30:.3f} GiB "
+                f"({(peak - self.base) / 2 ** 30:.3f} above the start)")
+
+
 def path_report(kernels, dia_kernels, launches, label, run, plan, check,
                 flops: int) -> dict:
     """One path of phase 9: ``run`` (the whole call) driven once with the
@@ -816,10 +863,9 @@ def path_report(kernels, dia_kernels, launches, label, run, plan, check,
     is the call); then the whole call's. Returns the launch counts."""
     from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    peak = Peak("cuda").start()
     c, got = drive(kernels, dia_kernels, run)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak.text()
     launches.update(got)
     what = check(c)
     del c
@@ -839,8 +885,7 @@ def path_report(kernels, dia_kernels, launches, label, run, plan, check,
                       flops=flops)
     phase(f"{label}: {what}; launches={got}; {plan_text}; numeric median "
           f"{num.median_s * 1e3:.3f} ms; whole call median "
-          f"{whole.median_s * 1e3:.3f} ms (of {whole.runs}); peak device "
-          f"memory {peak / 2 ** 30:.3f} GiB")
+          f"{whole.median_s * 1e3:.3f} ms (of {whole.runs}); {peak}")
     torch.cuda.empty_cache()
     return got
 
@@ -1063,6 +1108,304 @@ def cli_run() -> None:
           f"ms, {record['gflops']:.3f} GFlops on {record['device']}")
 
 
+# ---- phase 10: the AMG / ILU0 solver path ---------------------------------
+
+RAP_MATRIX = "poisson2d_256"  # the reference bench's rap_poisson2d_256 cell
+AMG_MATRIX = "mc2depi_524k"  # AMG setup, refreshes, solve; ILU0 and PCG
+EXACT_MATRIX = "poisson2d_256"  # exact-ILU0 PCG (eager SpTRSV steps)
+RAP_TOL = dict(rtol=1e-3, atol=1e-4)  # the reference bench's (bench.py:966)
+ILU0_PATTERN_LIMIT = 2e-3  # max |(LU - A)_ij| on A's pattern, 10 sweeps
+AMG_TRUE_RESIDUAL = 1e-3  # the reference's test_amg_vcycle_converges bound
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_s(fn, device):
+    """(result, seconds) of fn() on the host clock, the device synchronized
+    before and after."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+class Recorder:
+    """Wraps module functions for one ``with`` block: host seconds per
+    function (device synchronized around each call) and the dispatcher's
+    picks as (shape of A, shape of B, method)."""
+
+    def __init__(self, device, targets):
+        self.device = device
+        self.targets = targets  # (module, function name) pairs
+        self.seconds = collections.Counter()
+        self.picks = []
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            out, secs = host_s(lambda: fn(*args, **kwargs), self.device)
+            self.seconds[name] += secs
+            if name == "choose_method":
+                self.picks.append((args[0].shape, args[1].shape, out))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def solver_paths(port, kernels, dia_kernels, launches, card: str,
+                 device="cuda") -> None:
+    """Phase 10: the AMG / ILU0 solver path at full size, seed 0, float32.
+    Every result is verified; its host and device times and its peak
+    device memory are printed beside the card's name."""
+    from benchmark_spgemm_using_csr_tpu_torch.models import amg, ilu0
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        aggrap,
+        dispatch,
+        reuse,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
+
+    def say(msg):
+        phase(f"{msg} [{card}]")
+
+    def median_ms(fn, name):
+        return bench(fn, device=device, name=name, warmup=2,
+                     runs=5).median_s * 1e3
+
+    def driven(fn):
+        """fn() with the K1/K2/K3 counts set to 0 just before, read after."""
+        reset_counts(kernels, dia_kernels)
+        out = fn()
+        sync(device)
+        got = counts(kernels, dia_kernels)
+        launches.update(got)
+        return out, got
+
+    def scipy_rap(r_sp, a_sp, p_sp):
+        """R·(A·P) by scipy in float64."""
+        f64 = [x.astype(np.float64) for x in (r_sp, a_sp, p_sp)]
+        c = (f64[0] @ (f64[1] @ f64[2])).tocsr()
+        c.sort_indices()
+        return c
+
+    # -- rap_poisson2d_256: three routes to R·A·P ---------------------------
+    a_sp = generators.SUITE[RAP_MATRIX]()
+    p_sp, agg_s = host_s(lambda: amg.aggregation_prolongator(a_sp), "cpu")
+    p_sp = p_sp.astype(np.float32).tocsr()
+    r_sp = p_sp.T.tocsr()
+    a = port.CSR.from_scipy(a_sp, device=device)
+    p = port.CSR.from_scipy(p_sp, device=device)
+    r = port.CSR.from_scipy(r_sp, device=device)
+    want = scipy_rap(r_sp, a_sp, p_sp)
+    say(f"{RAP_MATRIX} R·A·P: A {a_sp.shape[0]} rows, {a_sp.nnz} entries; "
+        f"P {p_sp.shape} from aggregation_prolongator in "
+        f"{agg_s * 1e3:.1f} ms (host); R·A·P nnz {want.nnz}")
+
+    def chained():
+        return amg.galerkin_product(a, p, r)
+
+    def triple_plan():
+        return reuse.make_triple_plan(r, a, p)
+
+    def agg_plan():
+        return aggrap.make_aggrap_plan(r, a, p)
+
+    routes = (
+        ("chained galerkin_product (two spgemm(auto))", None, chained),
+        ("make_triple_plan + spgemm_triple", triple_plan,
+         lambda s: reuse.spgemm_triple(r, a, p, s)),
+        ("make_aggrap_plan + rap_aggregation", agg_plan,
+         lambda s: aggrap.rap_aggregation(a, s)),
+    )
+    for label, plan, numeric in routes:
+        peak = Peak(device).start()
+        with Recorder(device, [(dispatch, "choose_method")]) as rec:
+            if plan is None:
+                (c, got), whole_s = host_s(lambda: driven(chained), device)
+                plan_text, num = "no separate plan", chained
+            else:
+                def whole():
+                    return numeric(plan())
+                (c, got), whole_s = host_s(lambda: driven(whole), device)
+                sched, plan_s = host_s(plan, device)
+                if sched is None:
+                    raise AssertionError(f"{label}: the plan's gate refused "
+                                         f"{RAP_MATRIX}")
+                plan_text = f"host plan {plan_s * 1e3:.1f} ms"
+                num = functools.partial(numeric, sched)
+        peak = peak.text()
+        assert_csr_equal(c, want, **RAP_TOL)
+        picks = ", ".join(f"{sa}·{sb} -> {m}" for sa, sb, m in rec.picks)
+        say(f"  {label}: verified against scipy (structure exact, rtol "
+            f"{RAP_TOL['rtol']:g}, atol {RAP_TOL['atol']:g}); auto took "
+            f"[{picks or 'none'}]; launches={got}; {plan_text}; numeric "
+            f"median {median_ms(num, label):.3f} ms (5 after 2 "
+            f"warmups); whole call {whole_s * 1e3:.1f} ms; {peak}")
+    del a, p, r, c
+
+    # -- AMG on mc2depi_524k -------------------------------------------------
+    a_sp = generators.SUITE[AMG_MATRIX]()
+    targets = [(amg, "aggregation_prolongator"), (amg, "smooth_prolongator"),
+               (amg, "galerkin_product"), (dispatch, "choose_method")]
+    hier = {}
+    for smooth in (True, False):
+        peak = Peak(device).start()
+        with Recorder(device, targets) as rec:
+            (h, got), setup_s = host_s(lambda: driven(
+                lambda: amg.build_hierarchy(a_sp, smooth=smooth,
+                                            device=device)), device)
+        peak = peak.text()
+        hier[smooth] = h
+        sizes = [(lv.a.m, int(lv.a.rowptr[-1])) for lv in h.levels]
+        picks = sorted(collections.Counter(m for _, _, m in rec.picks).items())
+        sec = rec.seconds
+        say(f"{AMG_MATRIX} build_hierarchy(smooth={smooth}): "
+            f"{len(h.levels)} levels (rows, nnz) {sizes}; setup "
+            f"{setup_s * 1e3:.1f} ms = aggregation "
+            f"{sec['aggregation_prolongator'] * 1e3:.1f} (host) + smoothing "
+            f"{sec['smooth_prolongator'] * 1e3:.1f} + R·A·P "
+            f"{sec['galerkin_product'] * 1e3:.1f} + the rest; auto took "
+            f"{picks}; launches={got}; {peak}")
+        if len(h.levels) < 2 or any(
+                sizes[i + 1][0] >= sizes[i][0] for i in range(len(sizes) - 1)):
+            raise AssertionError(f"the hierarchy does not coarsen: {sizes}")
+
+    # numeric refresh: A's values times 1.5, each level against scipy. A
+    # smoothed P takes the triple plan; an aggregation P takes aggrap where
+    # the reference's gate admits the level (coarse key bits <= 32)
+    a_new_sp = a_sp.copy()
+    a_new_sp.data = (a_new_sp.data * np.float32(1.5)).astype(np.float32)
+    for smooth in (True, False):
+        h = hier[smooth]
+        a_new = port.CSR.from_scipy(a_new_sp, device=device)
+        peak = Peak(device).start()
+        (h2, got), first_s = host_s(
+            lambda: driven(lambda: amg.numeric_refresh(h, a_new)), device)
+        peak = peak.text()
+        kinds = [k for k, _ in h._triple_plans[1:]]
+        bits = [max(int(lv.a.m - 1).bit_length(), 1) * 2
+                for lv in h.levels[1:]]
+        routes = (["triple"] * len(bits) if smooth else
+                  ["agg" if b <= 32 else "triple" for b in bits])
+        if kinds != routes or (not smooth and "agg" not in kinds):
+            raise AssertionError(f"smooth={smooth}: refresh took {kinds}, "
+                                 f"not {routes}")
+        cur = a_new_sp
+        for li in range(1, len(h.levels)):
+            r_sp = h.levels[li].r.to_scipy()
+            p_sp = h.levels[li].p.to_scipy()
+            want = scipy_rap(r_sp, cur, p_sp)
+            assert_csr_equal(h2.levels[li].a, want, **RAP_TOL)
+            cur = want
+        again = median_ms(lambda: amg.numeric_refresh(h, a_new),
+                          f"refresh smooth={smooth}")
+        say(f"{AMG_MATRIX} numeric_refresh(A x 1.5), smooth={smooth}: "
+            f"routes per coarse level {kinds}; {len(h.levels) - 1} coarse "
+            f"levels verified against scipy R·A·P (rtol {RAP_TOL['rtol']:g});"
+            f" first call (plans built) {first_s * 1e3:.1f} ms; cached "
+            f"median {again:.3f} ms; launches={got}; {peak}")
+    del h2, a_new
+
+    # solve: the V-cycle as the solver, b from the seed
+    b = np.random.default_rng(0).standard_normal(a_sp.shape[0]).astype(
+        np.float32)
+    peak = Peak(device).start()
+    ((x, hist), got), solve_s = host_s(lambda: driven(
+        lambda: amg.solve(a_sp, b, tol=1e-4, max_iters=40, device=device)),
+        device)
+    peak = peak.text()
+    a64 = a_sp.astype(np.float64)
+    true_res = (np.linalg.norm(b - a64 @ x.astype(np.float64))
+                / np.linalg.norm(b.astype(np.float64)))
+    bt = torch.from_numpy(b).to(device)
+    vc_ms = median_ms(lambda: amg.v_cycle(hier[True], bt), "v_cycle")
+    say(f"{AMG_MATRIX} solve(b, tol 1e-4, max_iters 40): {len(hist)} "
+        f"residuals {[f'{v:.3e}' for v in hist]}; true residual (float64, "
+        f"host) {true_res:.3e}; whole solve {solve_s * 1e3:.1f} ms (setup "
+        f"included); V-cycle median {vc_ms:.3f} ms (coarsest LU factored "
+        f"beforehand); launches={got}; {peak}")
+    if not hist[-1] < 1e-4 or not true_res < AMG_TRUE_RESIDUAL:
+        raise AssertionError(f"AMG solve: history {hist[-1]:.3e}, true "
+                             f"residual {true_res:.3e}")
+    del hier
+
+    # -- ILU0 on mc2depi_524k, and PCG against CG -----------------------------
+    a = port.CSR.from_scipy(a_sp, device=device)
+    plan, plan_s = host_s(lambda: ilu0.ilu0_plan(a_sp), device)
+    peak = Peak(device).start()
+    f, ilu_s = host_s(lambda: ilu0.ilu0(a, sweeps=10, plan=plan), device)
+    peak = peak.text()
+    res = ilu0.ilu0_residual_on_pattern(a, f)
+    say(f"{AMG_MATRIX} ILU0: ilu0_plan {plan_s * 1e3:.1f} ms (host, max_deps "
+        f"{plan.dep_l.shape[1]}); ilu0(sweeps=10) {ilu_s * 1e3:.1f} ms "
+        f"(upload, sweeps, download); residual on A's pattern {res:.3e} "
+        f"(limit {ILU0_PATTERN_LIMIT:g}); {peak}")
+    if not res < ILU0_PATTERN_LIMIT:
+        raise AssertionError(f"ILU0 residual on the pattern {res:.3e}")
+    runs = {}
+    for label, factor in (("CG", None), ("ILU0-PCG (jacobi)", f)):
+        peak = Peak(device).start()
+        (x, hist), secs = host_s(lambda: ilu0.pcg(
+            a, bt, factor, tol=1e-5, max_iters=200, precond="jacobi"),
+            device)
+        peak = peak.text()
+        true_res = (np.linalg.norm(b - a64 @ x.astype(np.float64))
+                    / np.linalg.norm(b.astype(np.float64)))
+        runs[label] = hist
+        say(f"{AMG_MATRIX} {label} (tol 1e-5, max_iters 200): {len(hist)} "
+            f"iterations ({'converged' if hist[-1] < 1e-5 else 'not converged'}"
+            f"), last residual {hist[-1]:.3e}, true residual (float64, host) "
+            f"{true_res:.3e}; {secs * 1e3 / len(hist):.3f} ms an iteration; "
+            f"{peak}")
+    # iterations each run takes to the lowest residual both reach (the
+    # tolerance when both converge)
+    level = max(1e-5, runs["CG"][-1], runs["ILU0-PCG (jacobi)"][-1])
+    steps = {k: next(i for i, v in enumerate(h) if v <= level)
+             for k, h in runs.items()}
+    say(f"{AMG_MATRIX} iterations to relative residual {level:.3e}: {steps}")
+    if not steps["ILU0-PCG (jacobi)"] < steps["CG"]:
+        raise AssertionError(f"ILU0-PCG took no fewer iterations: {steps}")
+    del a, f, plan, bt
+
+    # -- exact-ILU0 PCG on poisson2d_256 (level-scheduled SpTRSV) -----------
+    a_sp = generators.SUITE[EXACT_MATRIX]()
+    a = port.CSR.from_scipy(a_sp, device=device)
+    f = ilu0.ilu0(a, sweeps=10)
+    b = np.random.default_rng(0).standard_normal(a_sp.shape[0]).astype(
+        np.float32)
+    peak = Peak(device).start()
+    (x, hist), secs = host_s(lambda: ilu0.pcg(
+        a, torch.from_numpy(b).to(device), f, tol=1e-5, max_iters=200,
+        precond="exact"), device)
+    peak = peak.text()
+    true_res = (np.linalg.norm(b - a_sp.astype(np.float64) @ x.astype(
+        np.float64)) / np.linalg.norm(b.astype(np.float64)))
+    say(f"{EXACT_MATRIX} ILU0-PCG (exact, tol 1e-5, max_iters 200): "
+        f"{len(hist)} iterations, last residual {hist[-1]:.3e}, true "
+        f"residual (float64, host) {true_res:.3e}; "
+        f"{secs * 1e3 / len(hist):.1f} ms an iteration (two SpTRSV solves "
+        f"each, schedules built once); {peak}")
+    if not hist[-1] < 1e-5 or not true_res < 1e-3:
+        raise AssertionError(f"exact ILU0-PCG: {hist[-1]:.3e}, {true_res:.3e}")
+
+
 def kernel_entry(name, source, replaces, launches, numbers) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
@@ -1083,7 +1426,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    phase(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    phase(card)
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -1125,12 +1469,14 @@ def main() -> int:
     main_path(port, kernels, dia_kernels, launches)
     tiled_binned_paths(port, kernels, dia_kernels, launches)
     library_paths(port, kernels, dia_kernels, launches)
+    # 10. the AMG / ILU0 solver path
+    solver_paths(port, kernels, dia_kernels, launches, card)
     phase(f"launches on the paths: {dict(launches)}")
     for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused"):
         if launches[name] <= 0:
             raise AssertionError(f"the paths never launched {name}")
     cli_ops()
-    # 10. the CLI
+    # 11. the CLI
     cli_run()
 
     print(json.dumps({"kernels": [

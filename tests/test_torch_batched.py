@@ -111,6 +111,33 @@ def test_spgemm_batched_same_csr_as_reference(name, small_dense_blocks):
     same_csr(got, want)
 
 
+@pytest.mark.parametrize("density,mode", [(0.3, "full"), (0.2, "shift"),
+                                          (0.01, "gather")])
+def test_batched_dense_blocks_keep_payloads_on_the_host(density, mode,
+                                                        monkeypatch):
+    """Each dense block's extraction payload stays in the plan as a host
+    tensor and goes up at its turn; each block writes its exact values
+    into C, and C equals the reference's in every extraction mode."""
+    s = sp.random(128, 128, density=density, random_state=5, format="csr",
+                  dtype=np.float32)
+    for mod in (jbatched, tbatched):
+        monkeypatch.setattr(mod, "make_batched_plan", functools.partial(
+            mod.make_batched_plan, dense_block_bytes=32 * 128 * 4))
+    ja = JCSR.from_scipy(s)
+    ta = bridge(ja)
+    plan = tbatched.make_batched_plan(ta, ta, stream_budget=100,
+                                      method="dense")
+    assert len(plan.blocks) == 4
+    assert {m for m, _ in plan.flat_c} == {mode}
+    for m, payload in plan.flat_c:
+        for x in ((payload,) if m == "gather" else payload or ()):
+            assert isinstance(x, torch.Tensor) and x.device.type == "cpu"
+    got = tbatched.spgemm_batched(ta, ta, stream_budget=100, method="dense")
+    same_csr(got, jbatched.spgemm_batched(ja, ja, stream_budget=100,
+                                          method="dense"))
+    assert not got.vals[plan.nnz_c:].any()
+
+
 def test_batched_auto_method_is_the_references():
     s = jgen.dense_rows(256, 256, nnz_per_row=48, seed=4)
     ja = JCSR.from_scipy(s)

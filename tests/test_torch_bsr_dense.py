@@ -99,6 +99,38 @@ def test_bsr_spgemm_same_blocks_as_reference(name):
                                **TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bsr_streamed_chunks_equal_one_chunk(dtype, monkeypatch):
+    """A chunk budget that cuts the pairs into at least 3 chunks gives the
+    blocks of one chunk (the products add into their slots in the same
+    order on the CPU)."""
+    s = jgen.dense_rows(256, 256, nnz_per_row=24, seed=2).astype(dtype)
+    ta = T.BSR.from_scipy(s, block_shape=(8, 128), device="cpu")
+    tb = T.BSR.from_scipy(s, block_shape=(128, 128), device="cpu")
+    plan = tbsr.make_bsr_plan(ta, tb)
+    whole = tbsr.bsr_spgemm(ta, tb, plan)
+    calls = []
+    bmm = torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda x, y: calls.append(1) or bmm(x, y))
+    per_pair = 128 * 128 * np.dtype(dtype).itemsize
+    monkeypatch.setattr(tbsr, "BSR_CHUNK_BYTES",
+                        per_pair * (plan.pairs_cap // 3 - 1))
+    got = tbsr.bsr_spgemm(ta, tb, plan)
+    assert len(calls) >= 3
+    np.testing.assert_array_equal(got.rowptr.numpy(), whole.rowptr.numpy())
+    np.testing.assert_array_equal(got.colidx.numpy(), whole.colidx.numpy())
+    np.testing.assert_allclose(got.blocks.numpy(), whole.blocks.numpy(),
+                               **(F64 if dtype == np.float64 else TOL))
+    want = scipy_square(s)
+    want.eliminate_zeros()
+    c = got.to_scipy().tocsr()
+    c.eliminate_zeros()
+    c.sort_indices()
+    np.testing.assert_array_equal(c.indptr, want.indptr)
+    np.testing.assert_allclose(c.data, want.data,
+                               **(F64 if dtype == np.float64 else TOL))
+
+
 @pytest.mark.parametrize("name", sorted(BLOCKED))
 def test_spgemm_bsr_same_csr_as_reference(name):
     sa, sb = BLOCKED[name]()

@@ -1,5 +1,6 @@
 """The port's paths without a kernel of their own (bsr, dense, hash, fused,
-out-of-core, SpMV/SpAdd/SpTRSV, BhSparse) on a CUDA device, against the
+out-of-core, SpMV/SpAdd/SpTRSV, BhSparse, the AMG / ILU0 solver path and
+the peak memory of bsr and the out-of-core path) on a CUDA device, against the
 scipy golden at the CLI's float32 tolerances (rtol 1e-4 / atol 1e-5).
 These tests need the card and skip without one; the card has no jax, so
 run them there without the repository's conftest:
@@ -70,6 +71,117 @@ def test_batched_on_the_card(method):
                          device="cuda")
     c = T.spgemm_batched(a, a, stream_budget=4000, method=method)
     assert_csr_equal(c, spgemm_reference(a, a), **TOL)
+
+
+def peak_bytes(fn):
+    """(result, peak device bytes above what was allocated before fn)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.cuda
+def test_bsr_peak_is_bounded_by_the_chunk_budget():
+    """dense_rows_2k's ~65k block pairs would gather 4 GiB of B blocks at
+    once; streamed, the peak is one chunk (BSR_CHUNK_BYTES of B blocks,
+    with its A blocks and products) plus the output blocks, 256 bytes a
+    pair of metadata and 64 MiB for cuBLAS's workspace."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import bsr
+
+    need_card()
+    s = generators.SUITE["dense_rows_2k"]()
+    a_b = T.BSR.from_scipy(s, (8, 128), device="cuda")
+    b_b = T.BSR.from_scipy(s, (128, 128), device="cuda")
+    plan = bsr.make_bsr_plan(a_b, b_b)
+    per_pair = 128 * 128 * 4
+    assert plan.pairs_cap * per_pair > 4 * bsr.BSR_CHUNK_BYTES
+    c, peak = peak_bytes(lambda: bsr.bsr_spgemm(a_b, b_b, plan))
+    chunk = bsr.BSR_CHUNK_BYTES // per_pair
+    bound = (chunk * (8 * 128 + 128 * 128 + 8 * 128) * 4
+             + (plan.out_blocks_cap + 1) * 8 * 128 * 4
+             + 256 * plan.pairs_cap + (64 << 20))
+    assert peak <= bound, (peak, bound)
+    want = (s @ s).tocsr()
+    want.eliminate_zeros()
+    got = c.to_scipy().tocsr()
+    got.eliminate_zeros()
+    assert abs(got - want).max() <= 1e-4 * abs(want).max()
+
+
+@pytest.mark.cuda
+def test_batched_two_blocks_peak_below_in_core(monkeypatch):
+    """Out of core in 2 dense blocks, each block's payload uploaded at its
+    turn and its temporaries gone before the next: the peak is below the
+    in-core dense path's on the same near-dense product."""
+    import functools
+
+    from benchmark_spgemm_using_csr_tpu_torch.ops import batched
+
+    need_card()
+    s = generators.dense_rows(4096, 4096, nnz_per_row=192, seed=1)
+    a = T.CSR.from_scipy(s, device="cuda")
+    monkeypatch.setattr(batched, "make_batched_plan", functools.partial(
+        batched.make_batched_plan, dense_block_bytes=2048 * 4096 * 4))
+    batched._plan_cache.clear()
+    plan = batched._cached_plan(a, a, 64 * 1024 * 1024, "dense")
+    assert len(plan.blocks) == 2
+    ooc, peak_ooc = peak_bytes(
+        lambda: T.spgemm_batched(a, a, method="dense"))
+    inc, peak_inc = peak_bytes(lambda: T.spgemm(a, a, method="dense"))
+    assert peak_ooc < peak_inc, (peak_ooc, peak_inc)
+    # both keep C's symbolic structure: one entry's two products cancel,
+    # exactly in scipy, to a rounding error under a fused multiply-add
+    pat = s.copy()
+    pat.data[:] = 1
+    pat = (pat @ pat).tocsr()
+    pat.sort_indices()
+    want = (s.astype(np.float64) @ s.astype(np.float64)).toarray()
+    for c in (ooc, inc):
+        np.testing.assert_array_equal(c.rowptr.cpu().numpy(), pat.indptr)
+        np.testing.assert_array_equal(c.colidx.cpu().numpy()[:pat.nnz],
+                                      pat.indices)
+        np.testing.assert_allclose(c.todense(), want, **TOL)
+    batched._plan_cache.clear()
+
+
+@pytest.mark.cuda
+def test_solver_path_on_the_card():
+    """AMG setup, both refresh routes, the V-cycle solve and ILU0-PCG
+    (Jacobi and exact applies) on the card against scipy."""
+    from benchmark_spgemm_using_csr_tpu_torch.models import amg, ilu0
+
+    need_card()
+    s = generators.poisson2d(32)
+    b = np.random.default_rng(0).standard_normal(s.shape[0]).astype(
+        np.float32)
+    for smooth, route in ((True, "triple"), (False, "agg")):
+        h = amg.build_hierarchy(s, smooth=smooth)
+        assert h.levels[-1].a.vals.is_cuda
+        s2 = s.copy()
+        s2.data = s2.data * np.float32(1.5)
+        h2 = amg.numeric_refresh(h, T.CSR.from_scipy(s2, device="cuda"))
+        assert [k for k, _ in h._triple_plans[1:]] == [route] * (
+            len(h.levels) - 1)
+        cur = s2
+        for lv, lv2 in zip(h.levels[1:], h2.levels[1:]):
+            want = (lv.r.to_scipy() @ (cur @ lv.p.to_scipy())).tocsr()
+            assert_csr_equal(lv2.a, want, rtol=1e-4, atol=1e-4)
+            cur = want
+    x, hist = amg.solve(s, b, tol=1e-4, max_iters=40)
+    assert hist[-1] < 1e-4
+    assert np.linalg.norm(b - s @ x) / np.linalg.norm(b) < 1e-3
+    a = T.CSR.from_scipy(s, device="cuda")
+    f = ilu0.ilu0(a, sweeps=20)
+    assert ilu0.ilu0_residual_on_pattern(a, f) < 1e-4
+    bt = torch.from_numpy(b).cuda()
+    _, cg = ilu0.pcg(a, bt, None, tol=1e-5, max_iters=300)
+    for precond in ("jacobi", "exact"):
+        x, hist = ilu0.pcg(a, bt, f, tol=1e-5, max_iters=300, precond=precond)
+        assert hist[-1] < 1e-5 and len(hist) < len(cg)
+        assert np.linalg.norm(b - s @ x) / np.linalg.norm(b) < 1e-3
 
 
 @pytest.mark.cuda
