@@ -148,7 +148,8 @@ def spgemm_bsr(a_csr: CSR, b_csr: CSR, block_shape=(8, 128),
     block_shape = (bm, bk) for A; B gets (bk, bn) with bn = out_block[1].
     The blocking and the conversion back go through scipy on the host, and
     zeros inside C's blocks are dropped (entries that cancel numerically
-    too), as in the reference package."""
+    too), as in the reference package. bfloat16 operands are blocked and
+    multiplied in float32 (scipy has no bfloat16), and C is rounded back."""
     bm, bk = block_shape
     bn = out_block[1]
     dev = a_csr.device
@@ -158,7 +159,8 @@ def spgemm_bsr(a_csr: CSR, b_csr: CSR, block_shape=(8, 128),
     c = c_b.to_scipy().tocsr()
     c.eliminate_zeros()
     c.sort_indices()
-    return CSR.from_scipy(c, device=dev)
+    return CSR.from_scipy(
+        c, dtype=torch.promote_types(a_csr.dtype, b_csr.dtype), device=dev)
 
 
 def block_density(a: CSR, block_shape=(8, 128)) -> float:

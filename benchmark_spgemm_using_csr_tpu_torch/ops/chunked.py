@@ -41,6 +41,9 @@ import torch
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view, pad_bucket
 
 F32 = torch.float32
+# values that ride as float32 bits through the expansion (the reference's
+# packing gates): bfloat16 and float16 products are formed in float32
+F32_PACKABLE = (torch.float32, torch.bfloat16, torch.float16)
 
 WIDE_LANES = 128  # padded-B table row width of the wide path
 
@@ -144,7 +147,7 @@ def make_chunked_plan(
     # al-aligned table rows; TPU v5e constants of the reference package
     AL_DESC_RATES = {8: 1.82e8, 16: 1.23e8}
     SORT_NS, PAIR_NS, CHUNK_NS = 3.9, 5.5, 1.0
-    al_packable = a.vals.dtype == F32
+    al_packable = a.vals.dtype in F32_PACKABLE
     abpad_cap = 0
     blen_nw = b_len[b_len < wide_min] if use_wide else b_len
 
@@ -182,7 +185,8 @@ def make_chunked_plan(
     al = al or 0
     al_min = (al_min or 0) if al else 0
     if al and not al_packable:
-        raise ValueError("aligned expansion requires float32 values")
+        raise ValueError("aligned expansion requires float32, bfloat16 or "
+                         "float16 values")
     if k is None:
         k = 1
     k = min(k, b.capacity)
@@ -357,7 +361,7 @@ def _expand_chunks(a: CSR, b: CSR, k: int, chunks_cap: int,
         q_posb = torch.where(per_nz > 0, b_start, -1) - starts
     q_remb = per_nz + k * starts
     deltas = (q_posb, q_remb) if need_rem else (q_posb,)
-    if a.vals.dtype == F32:
+    if a.vals.dtype in F32_PACKABLE:
         outs = _propagate_entry_consts(
             starts, deltas + (_f32_bits(a.vals),), chunks_cap,
             use_set=scatter_set,
@@ -424,8 +428,8 @@ def _expand_aligned(a: CSR, b: CSR, al: int, chunks_cap: int,
                     scatter_set: bool = False, al_min: int = 0):
     """Expansion via an al-aligned copy of B (``_aligned_table``):
     products arrive as whole al-lane table rows, masked by the remaining
-    length like narrow-chunk tails. Requires float32 values (the plan
-    guarantees this).
+    length like narrow-chunk tails. Requires float32-packable values (the
+    plan guarantees this).
 
     Returns flat (row, col, val) of shape (chunks_cap * al,); invalid slots
     carry row == m. wide_min > 0 skips entries with len >= wide_min;
@@ -528,7 +532,7 @@ def _expand_wide(a: CSR, b: CSR, wide_min: int, wchunks_cap: int,
     row = _row_stream(a, wends, wchunks_cap)
     q_posb = p0 - L * wstarts
     q_remb = pn + L * wstarts
-    if a.vals.dtype == F32:
+    if a.vals.dtype in F32_PACKABLE:
         posb, remb, avalb = _propagate_entry_consts(
             wstarts, (q_posb, q_remb, _f32_bits(a.vals)), wchunks_cap
         )

@@ -8,7 +8,7 @@ work into one dense matrix product instead:
 1. scatter each CSR's values into a dense operand (one collision-free
    scatter per matrix);
 2. one dense matmul, in IEEE float32 whatever the caller's TF32 setting
-   (``ieee_fp32``; float64 runs in native float64);
+   (``ieee_fp32``; float64 runs in native float64, bfloat16 in float32);
 3. extract C's values at the structural positions the host plan computed,
    by hole fraction: ``identity`` at zero holes, ``shift`` (a stable
    left-compaction, ``chunked._shift_compact``) when holes < slots / 8,
@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..sparse.csr import CSR, pad_bucket
+from ..sparse.csr import CSR, acc_dtype, pad_bucket
 from .chunked import _shift_compact
 from .scancompact import SENTINEL_U32, runsum_compact_scan
 
@@ -124,10 +124,12 @@ def make_dense_plan(a: CSR, b: CSR) -> DensePlan:
 
 
 def csr_to_dense(a: CSR) -> torch.Tensor:
-    """Collision-free scatter densification: padding slots write 0 into a
-    guard row ``m``, which is cut off."""
-    dense = torch.zeros((a.m + 1, a.n), dtype=a.vals.dtype, device=a.device)
-    dense[a.row_ids().long(), a.colidx.long()] = a.vals
+    """Collision-free scatter densification in ``acc_dtype`` (bfloat16 as
+    float32): padding slots write 0 into a guard row ``m``, which is cut
+    off."""
+    dense = torch.zeros((a.m + 1, a.n), dtype=acc_dtype(a.vals.dtype),
+                        device=a.device)
+    dense[a.row_ids().long(), a.colidx.long()] = a.vals.to(dense.dtype)
     return dense[: a.m]
 
 
@@ -147,7 +149,7 @@ def spgemm_dense(a: CSR, b: CSR, plan: DensePlan) -> CSR:
         _, vals, _ = runsum_compact_scan(
             plan.p1, vals, w=vals.shape[0], out_cap=plan.cap_c, max_run=1,
         )
-    out = torch.zeros(plan.cap_c, dtype=vals.dtype, device=vals.device)
+    out = torch.zeros(plan.cap_c, dtype=a.vals.dtype, device=vals.device)
     keep = min(plan.nnz_c, vals.shape[0])
     out[:keep] = vals[:keep]
     return CSR(plan.rowptr, plan.colidx, out, plan.shape)

@@ -22,6 +22,8 @@ the device, DIA -> CSR on the device with exact zeros pruned.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..sparse.csr import CSR
@@ -82,7 +84,12 @@ def dia_spmv(a: DIA, x: torch.Tensor) -> torch.Tensor:
 def spgemm_dia(a_csr: CSR, b_csr: CSR) -> CSR:
     """CSR -> DIA -> multiply -> CSR. Plane slots that compute to exactly
     0.0 are structurally absent in the true C and are pruned, so the CSR
-    structure matches the scalar paths."""
+    structure matches the scalar paths. bfloat16 values give float32
+    planes (``DIA.from_csr``), and C's values are rounded back."""
     a_d = DIA.from_csr(a_csr, device=a_csr.device)
     b_d = a_d if b_csr is a_csr else DIA.from_csr(b_csr, device=b_csr.device)
-    return dia_spgemm(a_d, b_d).to_csr(prune=True)
+    c = dia_spgemm(a_d, b_d).to_csr(prune=True)
+    out_dtype = torch.promote_types(a_csr.dtype, b_csr.dtype)
+    if c.vals.dtype != out_dtype:
+        c = dataclasses.replace(c, vals=c.vals.to(out_dtype))
+    return c

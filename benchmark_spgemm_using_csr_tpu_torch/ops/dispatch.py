@@ -151,7 +151,7 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     if products > (1 << 27):
         return float("inf")
     dtype = str(a.vals.dtype).replace("torch.", "")
-    if dtype not in ("float32", "float64"):
+    if dtype not in ("float32", "bfloat16", "float16", "float64"):
         return float("inf")
     m, n = a.m, b.n
     if max(int(n - 1).bit_length(), 1) > 31:

@@ -24,7 +24,9 @@ Pipeline:
 What differs from the reference package's ``ops/grouped.py``: keys are
 int64 with the sentinel 2**32 - 1 (the reference sorts uint32); values
 stay in their own dtype end to end (float64 is native on the card, so the
-reference's hi/lo float32 double-word lane is not carried); the tail is
+reference's hi/lo float32 double-word lane is not carried; bfloat16 and
+float16 products are formed and summed in float32, as the reference's
+float32 lane does); the tail is
 always the run-sum scan (no ``tail_mode``/``disp_bits``); per-slot A
 values come from a propagated entry id and one gather; the sort-pin hook
 is not carried.
@@ -36,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..sparse.csr import CSR, INDEX_DTYPE, host_view
+from ..sparse.csr import CSR, INDEX_DTYPE, acc_dtype, host_view
 from .chunked import (
     _aligned_table,
     _at_row_starts,
@@ -118,7 +120,8 @@ def make_grouped_plan(
 
     al: None sweeps {narrow k=1, aligned al=2/4/8} with the cost model;
     0 forces narrow; >0 forces that table alignment. Returns None when the
-    matrix doesn't fit the regime (empty, values not float32/float64, a
+    matrix doesn't fit the regime (empty, values not float32, bfloat16,
+    float16 or float64, a
     key that cannot fit 32 bits, or a structural product too large to
     count exactly on the host). The schedule's tensors live on a.device.
 
@@ -132,7 +135,8 @@ def make_grouped_plan(
         return None
     if fixed is not None:
         al = fixed.al
-    if a.vals.dtype not in (torch.float32, torch.float64):
+    if a.vals.dtype not in (torch.float32, torch.bfloat16, torch.float16,
+                            torch.float64):
         return None
     a_rowptr = host_view(a.rowptr)[: m + 1].astype(np.int64)
     nnz_a = int(a_rowptr[-1])
@@ -394,7 +398,8 @@ def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
         fs, (torch.arange(a.capacity, device=dev),), S,
         use_set=plan.scatter_set,
     )[0]
-    a_val = a.vals[torch.clamp(eid, 0, a.capacity - 1)]
+    a_val = a.vals.to(acc_dtype(a.vals.dtype))[
+        torch.clamp(eid, 0, a.capacity - 1)]
     s_ids = torch.arange(S, dtype=torch.int64, device=dev)
     pos = posb + lanes * s_ids
     row_chunks = row_chunk_start[1:] - row_chunk_start[:-1]

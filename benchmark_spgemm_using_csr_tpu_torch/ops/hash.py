@@ -24,7 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..sparse.csr import CSR, INDEX_DTYPE, csr_gather_rows, host_view, pad_bucket
+from ..sparse.csr import (
+    CSR,
+    INDEX_DTYPE,
+    acc_dtype,
+    csr_gather_rows,
+    host_view,
+    pad_bucket,
+)
 from .binned import _counts_add, _rowptr_from_counts, _scatter_bin
 from .esc import gather_products
 from .symbolic import nnz_upper_bound, total_products
@@ -43,7 +50,8 @@ def _hash_numeric_tile(a_tile: CSR, b: CSR, prod_cap: int, out_width: int):
     row = torch.clamp(a_tile.row_ids().long()[src], max=r - 1)
     # invalid products go to a dropped sentinel row r
     flat = torch.where(valid, row, r) * n + col
-    acc = torch.zeros((r + 1) * n, dtype=a_tile.vals.dtype, device=dev)
+    acc = torch.zeros((r + 1) * n, dtype=acc_dtype(a_tile.vals.dtype),
+                      device=dev)
     acc.index_add_(0, flat, val.to(acc.dtype))
     occ = torch.zeros((r + 1) * n, dtype=torch.bool, device=dev)
     occ[flat] = True

@@ -35,6 +35,7 @@ import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view
 from .chunked import (
+    F32_PACKABLE,
     _aligned_table,
     _at_row_starts,
     _bits_f32,
@@ -93,10 +94,11 @@ def make_tilepack_plan(
 
     Returns None when the matrix doesn't fit the regime (a row exceeds
     max_w padded products, keys overflow the int32 key, values are not
-    float32, or the structural product is too large to count exactly).
+    float32, bfloat16 or float16 (float64 would lose bits in K1's float32
+    lanes), or the structural product is too large to count exactly).
     The schedule's tensors live on a.device."""
     m, n = a.m, b.n
-    if m == 0 or n == 0 or a.vals.dtype != F32:
+    if m == 0 or n == 0 or a.vals.dtype not in F32_PACKABLE:
         return None
     a_rowptr = host_view(a.rowptr)[: m + 1].astype(np.int64)
     nnz_a = int(a_rowptr[-1])

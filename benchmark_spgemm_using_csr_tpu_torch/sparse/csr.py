@@ -17,6 +17,8 @@ tensor it was given.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -26,24 +28,35 @@ Shape = Tuple[int, int]
 
 INDEX_DTYPE = torch.int32
 
+# id(device tensor) -> (host array, weak reference to the tensor)
 _HOST_MIRROR: dict = {}
 
 
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array; bfloat16 comes as float32
+    (exactly: numpy has no bfloat16)."""
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.cpu().numpy()
+
+
 def host_view(x) -> np.ndarray:
-    """Host numpy view of a possibly-device tensor, memoized for device
-    tensors. The memo HOLDS the tensor so its id() cannot be recycled by
-    another tensor (a recycled id would return another matrix's data).
-    Plan construction reads the same CSR buffers many times; on CUDA
-    each uncached call is a device->host copy and a sync."""
+    """Host numpy view of a possibly-device tensor (bfloat16 as float32),
+    memoized for device tensors. Plan construction reads the same CSR
+    buffers many times; on CUDA each uncached call is a device->host copy
+    and a sync. The memo holds a weak reference to each tensor, and an
+    entry leaves it when its tensor is collected: a recycled id() never
+    finds another tensor's data, and the memo keeps no device memory
+    alive."""
     if isinstance(x, np.ndarray):
         return x
     if x.device.type == "cpu":
-        return x.detach().numpy()
-    key = id(x)
-    hit = _HOST_MIRROR.get(key)
-    if hit is not None and hit[1] is x:
+        return _to_numpy(x)
+    hit = _HOST_MIRROR.get(id(x))
+    if hit is not None and hit[1]() is x:
         return hit[0]
-    v = x.detach().cpu().numpy()
+    v = _to_numpy(x)
     _remember_host(x, v)
     return v
 
@@ -52,15 +65,31 @@ def _remember_host(dev, host) -> None:
     """Pre-populate the host mirror when the host already has the data."""
     if dev.device.type == "cpu":
         return
-    if len(_HOST_MIRROR) > 256:
+    if len(_HOST_MIRROR) >= 256:  # a bound on the host memory it holds
         _HOST_MIRROR.clear()
-    _HOST_MIRROR[id(dev)] = (host, dev)
+    key = id(dev)
+    _HOST_MIRROR[key] = (host, weakref.ref(
+        dev, functools.partial(_forget_host, key)))
+
+
+def _forget_host(key: int, ref) -> None:
+    """The weak reference's callback: drop the entry of a collected tensor
+    (unless the id already names a newer entry)."""
+    hit = _HOST_MIRROR.get(key)
+    if hit is not None and hit[1] is ref:
+        del _HOST_MIRROR[key]
 
 
 def clear_host_mirror() -> None:
-    """Drop every memoized host view, and with it the device tensors the
-    memo holds alive (up to 257 of them, whatever their callers freed)."""
+    """Drop every memoized host view (for tests)."""
     _HOST_MIRROR.clear()
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type products of ``dtype`` values are formed and summed in:
+    float32 for bfloat16 and float16 (as the reference package does on its
+    sort-based paths), the type itself otherwise."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
 def next_pow2(x: int) -> int:
@@ -126,6 +155,8 @@ class CSR:
 
     # ---- conversions -----------------------------------------------------
     def to_scipy(self):
+        """scipy CSR copy (bfloat16 values as float32, exactly: scipy and
+        numpy have no bfloat16)."""
         import scipy.sparse as sp
 
         rowptr = host_view(self.rowptr).copy()
@@ -148,6 +179,11 @@ class CSR:
         cap = capacity if capacity is not None else pad_bucket(nnz)
         if cap < nnz:
             raise ValueError(f"capacity {cap} < nnz {nnz}")
+        # a torch dtype (bfloat16 too: numpy has none) rounds the values
+        # on their way to the tensor; a numpy dtype converts them here
+        vals_dtype = dtype if isinstance(dtype, torch.dtype) else None
+        if vals_dtype is not None:
+            dtype = np.float64 if vals_dtype == torch.float64 else np.float32
         dtype = np.dtype(dtype) if dtype is not None else mat.data.dtype
         colidx = np.zeros(cap, np.int32)
         vals = np.zeros(cap, dtype)
@@ -155,12 +191,15 @@ class CSR:
         vals[:nnz] = mat.data
         rowptr = np.asarray(mat.indptr, np.int32)
         return CSR.from_numpy(rowptr, colidx, vals, tuple(mat.shape),
-                              device=device)
+                              device=device, dtype=vals_dtype)
 
     @staticmethod
-    def from_numpy(rowptr, colidx, vals, shape, *, device) -> "CSR":
+    def from_numpy(rowptr, colidx, vals, shape, *, device,
+                   dtype: torch.dtype | None = None) -> "CSR":
         """CSR from host buffers that already follow the conventions (the
-        bridge from the reference package: ``np.asarray`` of its buffers)."""
+        bridge from the reference package: ``np.asarray`` of its buffers).
+        ``dtype``, a torch dtype, converts the values (default: their own
+        type)."""
         # private copies: the tensors (on the CPU) and the host mirror
         # must not alias arrays the caller may change
         rowptr = np.array(rowptr, np.int32, order="C")
@@ -170,10 +209,14 @@ class CSR:
             raise ValueError(f"rowptr shape {rowptr.shape} != ({shape[0] + 1},)")
         if colidx.shape != vals.shape:
             raise ValueError(f"colidx {colidx.shape} != vals {vals.shape}")
+        vals_t = torch.from_numpy(vals)
+        if dtype is not None and dtype != vals_t.dtype:
+            vals_t = vals_t.to(dtype)
+            vals = _to_numpy(vals_t)  # the mirror holds the rounded values
         out = CSR(
             rowptr=_to_device(rowptr, device),
             colidx=_to_device(colidx, device),
-            vals=_to_device(vals, device),
+            vals=vals_t.to(device),
             shape=(int(shape[0]), int(shape[1])),
         )
         # the host already HAS these arrays: mirror them so plans

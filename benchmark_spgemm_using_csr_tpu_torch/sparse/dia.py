@@ -150,6 +150,7 @@ class DIA:
     def from_csr(a: CSR, offsets=None, dtype=None, *, device) -> "DIA":
         """CSR -> DIA. ``offsets`` defaults to the set of occupied
         diagonals; an entry off the given diagonals is a ``ValueError``.
+        bfloat16 values give float32 planes (exactly; ``host_view``).
         The slots are looked up vectorised (``np.searchsorted``) on the
         host copy of the structure."""
         m, n = a.shape

@@ -7,11 +7,20 @@ import numpy as np
 
 from ..sparse.csr import CSR
 
+# the CLI's verify tolerances by value type (the reference CLI's); a
+# bfloat16 product is held against the float32 golden of the rounded inputs
+TOLERANCES = {
+    "float32": dict(rtol=1e-4, atol=1e-5),
+    "bfloat16": dict(rtol=2e-2, atol=1e-2),
+    "float64": dict(rtol=1e-12, atol=1e-14),
+}
+
 
 def spgemm_reference(a: CSR, b: CSR):
     """Golden C = A @ B via scipy (canonical: sorted cols, no duplicates;
     explicit zeros from cancellation are kept, as merge-based SpGEMM keeps
-    them)."""
+    them). bfloat16 operands enter as float32 (``CSR.to_scipy``), so the
+    golden is scipy's float32 product of the rounded inputs."""
     c = (a.to_scipy() @ b.to_scipy()).tocsr()
     c.sum_duplicates()
     c.sort_indices()

@@ -62,8 +62,8 @@ Phases, each printing one line (or a few):
    lifecycle on er_medium. Each: verified against scipy, the host time of
    its plan, the numeric median with the plan built, the whole call, and
    ``torch.cuda.max_memory_allocated()`` since the path started, absolute
-   and above the start (the host mirror of ``sparse/csr.host_view``, which
-   holds the device tensors it mirrors, is cleared first); then the
+   and above the start (nothing cleared between paths: the host mirror
+   of ``sparse/csr.host_view`` holds its tensors weakly); then the
    CLI's ``--op spmv|spmm|spadd|sptrsv`` on mc2depi_524k, each in a
    subprocess, each verified (sptrsv: its level and step counts);
 10. the AMG / ILU0 solver path, seed 0, float32, each line beside the
@@ -83,9 +83,26 @@ Phases, each printing one line (or a few):
    poisson2d_256. Each with its peak device memory and the K1/K2/K3
    launches of its run;
 11. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
-   suite:er_medium --json --runs 3``, in a subprocess.
+   suite:er_medium --json --runs 3 --roofline`` (its shares must lie in
+   (0, 1]) and ``suite:mc2depi_524k --dtype bfloat16``, in subprocesses;
+12. ``spgemm(A, A, method="auto")`` in bfloat16 on er_medium (tilepack,
+   K1), powerlaw_medium (chunked), circuit_64k (grouped), mc2depi_524k
+   (dia, K3) and dense_rows_2k (bsr) at full size: the pick must be the
+   reference's, each verified at rtol 2e-2 / atol 1e-2 against scipy's
+   float32 product of the rounded values, numeric median, whole call and
+   peak memory;
+13. one ``utils/profiling.trace`` of ``spgemm(auto)`` on er_medium and on
+   mc2depi_524k (Chrome traces under ``_scratch/traces/``): device
+   time by kernel name and the device's busy share of the window;
+   ``tile_sort_merge`` and ``dia_spgemm`` must show device time;
+14. the roofline of every path timed in phases 7-10 and 12
+   (``utils/roofline``, the card's data-sheet row): each time's ``_bound``
+   share and plan-aware ``_total`` share with the resource that bounds
+   it, beside the card's name and power limit; fails if any share
+   exceeds 1.0.
 
-The launch counts of phases 7-10 are set to 0 just before each path is
+The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
+launch counts of phases 7-10 and 12 are set to 0 just before each path is
 driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
 4-6 and the timing runs of phases 7-10 do not count.
@@ -143,12 +160,19 @@ K2_TOL = K1_TOL  # the same addition tree as the plain version
 K1_WIDTHS = (128, 256, 512, 1024, 2048)  # tile_sort_merge.cu's launch switch
 K2_WIDTHS = tuple(1 << i for i in range(1, 12))  # bin_sort_compress.cu's
 K3_TOL = dict(rtol=1e-6, atol=1e-6)  # bit-equal by design (no FMA)
-# H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-FP64_FLOPS_PER_S = 34e12  # outside the tensor cores
 SMS, LANES_PER_SM = 132, 128  # H100 SXM: 4 schedulers x 32 lanes per SM
 PKG = "benchmark_spgemm_using_csr_tpu_torch"
+# the reference package's dispatcher picks in bfloat16 (its CPU run;
+# tests/test_torch_bf16.py holds the port's picks to them)
+EXPECTED_BF16 = {"er_medium": "tilepack", "powerlaw_medium": "chunked",
+                 "circuit_64k": "grouped", "mc2depi_524k": "dia",
+                 "dense_rows_2k": "bsr"}
+PROFILED = {"er_medium": "tile_sort_merge", "mc2depi_524k": "dia_spgemm"}
+# the card's data-sheet row (utils/roofline.chip_spec), set by main()
+CHIP = None
+# roofline entries of the timed paths of phases 7-10 and the bfloat16
+# phase: (label, plan-aware stage models or None, _bound, seconds)
+ROOF = []
 
 
 def phase(msg: str) -> None:
@@ -179,12 +203,11 @@ def cuda_ms(fn, reps: int = 10, flush=None, batch: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int = 0, flops_per_s: float = FP32_FLOPS_PER_S):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over their type's rate (fp32 unless given)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(model):
+    """(bound_ms, bound_by) of a ``utils/roofline`` stage model on the
+    card: the larger of its bytes over the HBM rate and its operations
+    over their type's rate."""
+    return model.sol_time_s(CHIP) * 1e3, model.bound_by(CHIP)
 
 
 def suite_csr(port, name: str):
@@ -229,7 +252,7 @@ def compare_tiles(name, got, want, tol, what: str) -> float:
     return err
 
 
-def time_tiles(name, what, fn, plain, keys, nbytes, sm_hz) -> dict:
+def time_tiles(name, what, fn, plain, keys, model, sm_hz) -> dict:
     """The kernel, its plain version and ``torch.sort`` of the same (r, W)
     keys with indices (a sort-only yardstick, not the kernel's function)
     timed on one input in batches of 10 calls, the kernel also alone (one
@@ -240,15 +263,16 @@ def time_tiles(name, what, fn, plain, keys, nbytes, sm_hz) -> dict:
     alone_ms = cuda_ms(fn)
     plain_ms = cuda_ms(plain, batch=10)
     sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1), batch=10)
-    bound_ms, bound_by = bound(nbytes)
+    bound_ms, bound_by = bound(model)
+    nbytes = model.bytes_moved
     r, w = keys.shape
     lw = w.bit_length() - 1
     cmpx = r * (w // 2) * lw * (lw + 1) // 2
     floor_ms = cmpx / (SMS * LANES_PER_SM * sm_hz) * 1e3
     phase(f"{name} on {what}: kernel {ms:.4f} ms ({alone_ms:.4f} alone), "
           f"plain {plain_ms:.4f} ms, torch.sort of the keys {sort_ms:.4f} ms "
-          f"(CUDA events, median of 10 batches of 10); bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB at 3.35 "
-          f"TB/s; the kernel at {bound_ms / ms:.1%} of it); network floor "
+          f"(CUDA events, median of 10 batches of 10); bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB, "
+          f"{CHIP.name} data sheet; the kernel at {bound_ms / ms:.1%} of it); network floor "
           f"{floor_ms * 1e3:.1f} us ({cmpx / 1e6:.0f} M compare-exchanges)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -285,9 +309,12 @@ def time_k1(port, kernels, sm_hz) -> dict:
     fn = functools.partial(kernels.tile_sort_merge, key, val, **kw)
     plain = functools.partial(kernels.tile_sort_merge_plain, key, val, **kw)
     err = compare_tiles("K1", fn(), plain(), K1_TOL, what)
-    # 20 B per lane (key + val read; key, val, pos written) + the counts
-    nbytes = r * w * 20 + r * kw["wlr"] * 4
-    return dict(time_tiles("K1", what, fn, plain, key, nbytes, sm_hz),
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        tile_sort_merge_model,
+    )
+
+    model = tile_sort_merge_model(r, w, kw["wlr"])
+    return dict(time_tiles("K1", what, fn, plain, key, model, sm_hz),
                 max_abs_err=err)
 
 
@@ -362,6 +389,10 @@ def k2_path_tiles(port):
 def time_k2(port, kernels, sm_hz) -> dict:
     """K2 against its plain version on every path tile, each then timed.
     Returns mc2depi_524k's numbers with the worst error of all."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        bin_sort_compress_model,
+    )
+
     first, worst = None, 0.0
     for what, col, val, n in k2_path_tiles(port):
         fn = functools.partial(kernels.bin_sort_compress, col, val,
@@ -370,9 +401,8 @@ def time_k2(port, kernels, sm_hz) -> dict:
                                   n_sentinel=n)
         worst = max(worst, compare_tiles("K2", fn(), plain(), K2_TOL, what))
         r, w = col.shape
-        # col + val read; col, val, pos written; the per-row counts
-        nbytes = r * w * (12 + 2 * val.element_size()) + r * 4
-        numbers = time_tiles("K2", what, fn, plain, col, nbytes, sm_hz)
+        model = bin_sort_compress_model(r, w, val.element_size())
+        numbers = time_tiles("K2", what, fn, plain, col, model, sm_hz)
         first = first or numbers
     return dict(first, max_abs_err=worst)
 
@@ -514,16 +544,20 @@ def profiler_ms(fn, kernel: str, flush, reps: int = 10, retry: bool = True):
 
 
 def k3_bound(dia_kernels, a, b):
-    """(bound_ms, bound_by, nbytes, flops) of one product: each plane read
-    or written once; 2 flops per term slot whose A read falls inside the
-    matrix, at the fp32 or fp64 rate."""
-    off_c, terms = dia_kernels.plan_terms(a.offsets, b.offsets)
-    size = a.data.element_size()
-    nbytes = (a.ndiag + b.ndiag + len(off_c)) * b.n * size
-    flops = 2 * sum(max(0, min(b.n, a.n + d2) - max(0, d2))
-                    for dc in off_c for _, _, d2 in terms[dc])
-    rate = FP64_FLOPS_PER_S if size == 8 else FP32_FLOPS_PER_S
-    return (*bound(nbytes, flops, rate), nbytes, flops)
+    """(bound_ms, bound_by, nbytes, flops) of one product
+    (``utils/roofline.dia_stage_models``): each plane read or written
+    once; 2 flops per term slot whose A read falls inside the matrix, at
+    the fp32 or fp64 rate."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        dia_flops,
+        dia_stage_models,
+    )
+
+    off_c, _ = dia_kernels.plan_terms(a.offsets, b.offsets)
+    model = dia_stage_models(
+        a.ndiag, len(off_c), b.n, a.data.element_size(), nd_b=b.ndiag,
+        flops=dia_flops(a.offsets, b.offsets, a.n, b.n))["plane_fma"]
+    return (*bound(model), model.bytes_moved, model.flops)
 
 
 def time_k3_once(dia_kernels, a, what: str, flush, gather_reps: int) -> dict:
@@ -655,20 +689,48 @@ def numeric_fn(port, a, method):
     if method == "tiled":
         plan = port.make_tiled_plan(a, a)
         return lambda: port.spgemm_tiled(a, a, plan)
+    if method == "bsr":
+        a_b = port.BSR.from_scipy(a.to_scipy(), (8, 128), device="cuda")
+        b_b = port.BSR.from_scipy(a.to_scipy(), (128, 128), device="cuda")
+        plan = port.make_bsr_plan(a_b, b_b)
+        return lambda: port.bsr_spgemm(a_b, b_b, plan)
     plan = port.make_chunked_plan(a, a)
     return lambda: port.spgemm_chunked(a, a, plan)
 
 
-def report(port, a, name, method, run, launched, products, c):
+def roof(label, models, bound_model, seconds) -> None:
+    """One timed path for the roofline phase: its plan-aware stage models
+    (None: it has none), its ``_bound`` and a measured device time."""
+    ROOF.append((label, models, bound_model, seconds))
+
+
+def roof_spgemm(label, a, c, method, numeric_s, whole_s) -> None:
+    """The roofline entries of one product's numeric median and whole call
+    (``utils/roofline.spgemm_models``; dia's numeric phase receives DIA
+    planes, its whole call CSR)."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        spgemm_models,
+    )
+
+    models, csr_bound = spgemm_models(a, a, c, method)
+    num_bound = (spgemm_models(a, a, c, method, planes=True)[1]
+                 if method == "dia" else csr_bound)
+    roof(f"{label} numeric", models, num_bound, numeric_s)
+    roof(f"{label} whole call", models, csr_bound, whole_s)
+
+
+def report(port, a, name, method, run, launched, products, c, tol=F32_TOL,
+           zeros=True):
     """Verify C against scipy, time the numeric phase (and the whole
-    call), print one line."""
+    call), print one line; the two times go to the roofline phase."""
     from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
         assert_csr_equal,
         spgemm_reference,
     )
     from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
 
-    assert_csr_equal(c, spgemm_reference(a, a), **F32_TOL)
+    assert_csr_equal(c, spgemm_reference(a, a), check_explicit_zeros=zeros,
+                     **tol)
     nnz_c = int(c.rowptr[-1])
     t0 = time.perf_counter()
     fn = numeric_fn(port, a, method)
@@ -685,6 +747,7 @@ def report(port, a, name, method, run, launched, products, c):
                 flops=2 * products)
     phase(f"{line}; whole call median {e2e.median_s * 1e3:.3f} ms = "
           f"{e2e.gflops_median:.3f} GFlops")
+    roof_spgemm(f"{name} {method}", a, c, method, num.median_s, e2e.median_s)
 
 
 def drive(kernels, dia_kernels, run):
@@ -821,23 +884,122 @@ def tiled_binned_paths(port, kernels, dia_kernels, launches) -> None:
           f"{tail.size} products={products} nnzC={int(c.rowptr[-1])} "
           f"launches={got} verified; median {res.median_s * 1e3:.3f} ms = "
           f"{res.gflops_median:.3f} GFlops")
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        spgemm_models,
+    )
+
+    roof("powerlaw_medium binned (the whole call)",
+         *spgemm_models(a, a, c, "binned"), res.median_s)
+
+
+def bf16_paths(port, kernels, dia_kernels, launches) -> None:
+    """``spgemm(A, A, method="auto")`` in bfloat16 at full size: the pick
+    must be the reference's, each result verified against scipy's float32
+    product of the rounded values (rtol 2e-2 / atol 1e-2, exact zeros
+    pruned: bfloat16 sums cancel to exactly 0 often, and scipy drops them),
+    with its numeric median, whole call and peak memory."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import TOLERANCES
+
+    for name, want_method in EXPECTED_BF16.items():
+        a = port.CSR.from_scipy(generators.SUITE[name](),
+                                dtype=torch.bfloat16, device="cuda")
+        method = port.choose_method(a, a)
+        if method != want_method:
+            raise AssertionError(f"{name} bfloat16: dispatcher chose "
+                                 f"{method}, the reference {want_method}")
+        products = port.spgemm_flops(a, a) // 2
+        run = lambda: port.spgemm(a, a, method="auto")  # noqa: E731
+        peak = Peak("cuda").start()
+        c, got = drive(kernels, dia_kernels, run)
+        peak = peak.text()
+        launches.update(got)
+        if c.vals.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: C in {c.vals.dtype}")
+        report(port, a, f"{name} bfloat16", method, run, got, products, c,
+               tol=TOLERANCES["bfloat16"], zeros=False)
+        phase(f"  {name} bfloat16: {peak}")
+        del a, c
+        torch.cuda.empty_cache()
+
+
+def profile_paths(port, logdir: str) -> None:
+    """One ``utils/profiling.trace`` of ``spgemm(A, A, method="auto")`` (a
+    warm call) on each PROFILED matrix: device time by kernel name and the
+    device's busy share of the window (kernel and copy time over the host
+    clock); the named kernel must show device time."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+        trace,
+    )
+
+    for name, kernel in PROFILED.items():
+        a = suite_csr(port, name)
+        port.spgemm(a, a, method="auto")
+        for attempt in range(1, 4):  # the profiler now and then drops records
+            with trace(os.path.join(logdir, name)) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                port.spgemm(a, a, method="auto")
+                torch.cuda.synchronize()
+                window = time.perf_counter() - t0
+            by = device_time_by_kernel(prof)
+            hit = sum(v for k, v in by.items() if kernel in k)
+            if hit > 0:
+                break
+        busy = sum(by.values())
+        top = ", ".join(f"{k[:60]} {v * 1e3:.3f}" for k, v in
+                        list(by.items())[:8])
+        phase(f"profile of spgemm(auto) on {name}: window {window * 1e3:.1f} "
+              f"ms (host clock), device busy {busy * 1e3:.3f} ms = "
+              f"{busy / window:.1%}; {len(by)} kernels, top (ms): {top}; "
+              f"trace {logdir}/{name}/trace.json (attempt {attempt})")
+        if hit <= 0:
+            raise AssertionError(f"profile of {name}: no device time in "
+                                 f"{kernel}")
+        phase(f"  {kernel}* on {name}: {hit * 1e3:.4f} ms device time")
+        del a
+
+
+def roofline_phase(card: str) -> None:
+    """Every timed path of phases 7-10 and the bfloat16 phase: its
+    ``_bound`` share and its plan-aware ``_total`` share of the measured
+    time, each with the resource that bounds it, beside the card; fails if
+    any share exceeds 1.0 (the model would not be a lower bound)."""
+    over = []
+    for label, models, bound_model, secs in ROOF:
+        t_b = bound_model.sol_time_s(CHIP)
+        text = (f"_bound {t_b * 1e6:.2f} us = {t_b / secs:.2%} "
+                f"({bound_model.bound_by(CHIP)})")
+        shares = [t_b / secs]
+        if models:
+            t_bytes = sum(m.times_s(CHIP)[0] for m in models.values())
+            t_ops = sum(m.times_s(CHIP)[1] for m in models.values())
+            t_tot = sum(m.sol_time_s(CHIP) for m in models.values())
+            shares.append(t_tot / secs)
+            text += (f"; plan-aware _total {t_tot * 1e6:.2f} us = "
+                     f"{t_tot / secs:.2%} "
+                     f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        else:
+            text += "; no plan-aware model"
+        phase(f"roofline {label}: {secs * 1e3:.3f} ms measured; {text}; "
+              f"{CHIP.name} data sheet [{card}]")
+        if max(shares) > 1.0:
+            over.append(label)
+    if over:
+        raise AssertionError(f"roofline shares above 1.0: {over}")
 
 
 class Peak:
-    """Peak device memory of one item: ``start()`` clears the host mirror
-    (sparse/csr.host_view holds the device tensors it mirrors, whatever
-    their callers freed) and resets the peak; ``text()`` reads it, absolute
-    and above the start."""
+    """Peak device memory of one item: ``start()`` resets the peak;
+    ``text()`` reads it, absolute and above the start. The host mirror of
+    ``sparse/csr.host_view`` holds its tensors weakly, so no earlier path's
+    freed buffers stay in the peak."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
 
     def start(self):
-        from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import (
-            clear_host_mirror,
-        )
-
-        clear_host_mirror()
         if self.cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -853,14 +1015,16 @@ class Peak:
 
 
 def path_report(kernels, dia_kernels, launches, label, run, plan, check,
-                flops: int) -> dict:
+                flops: int, roofing=None) -> dict:
     """One path of phase 9: ``run`` (the whole call) driven once with the
     launch counts set to 0 just before and read just after, and the peak
     device memory since its start; ``check`` holds its result against
     scipy (and raises); ``plan()`` builds the host plan (timed on the host
     clock) and returns the numeric phase alone, whose median is timed
     (``plan`` None: the path has no separate plan, and the numeric phase
-    is the call); then the whole call's. Returns the launch counts."""
+    is the call); then the whole call's. ``roofing(c)`` gives the path's
+    (plan-aware models or None, _bound) for the roofline phase. Returns the
+    launch counts."""
     from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
 
     peak = Peak("cuda").start()
@@ -868,6 +1032,9 @@ def path_report(kernels, dia_kernels, launches, label, run, plan, check,
     peak = peak.text()
     launches.update(got)
     what = check(c)
+    models = bound_model = None
+    if roofing is not None:
+        models, bound_model = roofing(c)
     del c
     if plan is None:
         plan_text = "no separate plan"
@@ -886,6 +1053,10 @@ def path_report(kernels, dia_kernels, launches, label, run, plan, check,
     phase(f"{label}: {what}; launches={got}; {plan_text}; numeric median "
           f"{num.median_s * 1e3:.3f} ms; whole call median "
           f"{whole.median_s * 1e3:.3f} ms (of {whole.runs}); {peak}")
+    if bound_model is not None:
+        if plan is not None:
+            roof(f"{label} numeric", models, bound_model, num.median_s)
+        roof(f"{label} whole call", models, bound_model, whole.median_s)
     torch.cuda.empty_cache()
     return got
 
@@ -916,11 +1087,21 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
         fused,
     )
     from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils import roofline as R
     from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
         spgemm_reference,
     )
 
     report = functools.partial(path_report, kernels, dia_kernels, launches)
+
+    def spgemm_roof(a, method):
+        return lambda c: R.spgemm_models(a, a, c, method)
+
+    def op_roof(nbytes, flops):
+        """A one-stage op: its operands read once, its output written
+        once; no plan-aware model."""
+        return lambda _: (None, R.StageModel("_bound", float(nbytes),
+                                             float(flops)))
 
     def bsr_plan(a):
         a_b = port.BSR.from_scipy(a.to_scipy(), (8, 128), device="cuda")
@@ -946,7 +1127,7 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
                lambda: port.spgemm(a, a, method="auto"),
                functools.partial(make, a),
                csr_check(spgemm_reference(a, a), zeros=False),
-               2 * products)
+               2 * products, spgemm_roof(a, EXPECTED[name]))
         del a
 
     # the reference bench's out-of-core point: dense_rows_8k, 64M budget
@@ -966,16 +1147,25 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
               f"{[mode for mode, _ in plan.flat_c]}")
         return lambda: port.spgemm_batched(a, a)
 
+    def batched_roof(c):
+        plan = batched._cached_plan(a, a, 64 * 1024 * 1024, None)
+        models, bound_model = R.spgemm_models(a, a, c, plan.method)
+        if plan.method == "dense":
+            models = R.batched_dense_stage_models(
+                plan, a.n, a.n, int(a.rowptr[-1]))
+        return models, bound_model
+
     report(f"dense_rows_8k spgemm_batched (out of core, products={products})",
            fresh_batched, batched_plan, csr_check(spgemm_reference(a, a)),
-           2 * products)
+           2 * products, batched_roof)
     del a
 
     # hash and fused on powerlaw_medium
     a = suite_csr(port, "powerlaw_medium")
     products = port.spgemm_flops(a, a) // 2
     report("powerlaw_medium hash", lambda: port.spgemm(a, a, method="hash"),
-           None, csr_check(spgemm_reference(a, a)), 2 * products)
+           None, csr_check(spgemm_reference(a, a)), 2 * products,
+           spgemm_roof(a, "hash"))
 
     def fused_plan():
         plan = fused.make_plan(a, a)
@@ -985,7 +1175,8 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
 
     got = report("powerlaw_medium fused",
                  lambda: port.spgemm(a, a, method="fused"), fused_plan,
-                 csr_check(spgemm_reference(a, a)), 2 * products)
+                 csr_check(spgemm_reference(a, a)), 2 * products,
+                 spgemm_roof(a, "fused"))
     if got["bin_sort_compress"] <= 0:
         raise AssertionError("fused on powerlaw_medium did not launch K2")
     del a
@@ -1000,7 +1191,7 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
                functools.partial(make, a),
                csr_check(spgemm_reference(a, a), F64_TOL,
                          zeros=method != "bsr"),
-               2 * products)
+               2 * products, spgemm_roof(a, method))
     del a
 
     # SpMV, SpMM, SpAdd, SpTRSV on mc2depi_524k
@@ -1018,19 +1209,24 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
             return f"verified against scipy (rtol {tol['rtol']:g})"
         return check
 
+    a_bytes = R.csr_bytes(s.shape[0], nnz)
     for op, fn, arg, want, k in (("spmv", port.spmv, x, s @ x_np, 1),
                                  ("spmm", port.spmm, xk, s @ xk_np, 64)):
         report(f"mc2depi_524k {op}", lambda: fn(a, arg), None,
-               dense_check(want, F32_TOL), 2 * nnz * k)
+               dense_check(want, F32_TOL), 2 * nnz * k,
+               op_roof(a_bytes + 4 * k * sum(s.shape), 2 * nnz * k))
     at = port.csr_transpose(a)
 
     def spadd_plan():
         plan = port.make_add_plan(a, at)
         return lambda: port.spadd_planned(a, at, plan)
 
+    sum_sp = (s + s.T).tocsr()
     report("mc2depi_524k spadd (A + A^T)", lambda: port.spadd(a, at),
            spadd_plan,
-           csr_check((s + s.T).tocsr(), dict(rtol=1e-3, atol=1e-3)), 2 * nnz)
+           csr_check(sum_sp, dict(rtol=1e-3, atol=1e-3)), 2 * nnz,
+           op_roof(2 * a_bytes + R.csr_bytes(s.shape[0], sum_sp.nnz),
+                   2 * nnz - sum_sp.nnz))
     tri = sp.tril(s, format="csr")
     tri = (tri + sp.identity(s.shape[0], np.float32, format="csr")
            * (np.abs(tri).sum(axis=1).max() + 1.0)).tocsr()
@@ -1048,7 +1244,9 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
            trsv_plan,
            dense_check(spsolve_triangular(tri, x_np, lower=True),
                        dict(rtol=1e-3, atol=1e-3)),
-           2 * tri.nnz)
+           2 * tri.nnz,
+           op_roof(R.csr_bytes(s.shape[0], tri.nnz) + 8 * s.shape[0],
+                   2 * tri.nnz))
     del a, at, lower
 
     # the BhSparse lifecycle on er_medium
@@ -1073,7 +1271,10 @@ def library_paths(port, kernels, dia_kernels, launches) -> None:
         np.testing.assert_allclose(vals, want.data, **F32_TOL)
         return f"get_c verified against scipy (nnzC={want.nnz})"
 
-    report("er_medium BhSparse lifecycle", lifecycle, None, bh_check, 0)
+    products = int(np.diff(s.indptr)[s.indices].sum())
+    report("er_medium BhSparse lifecycle", lifecycle, None, bh_check, 0,
+           lambda _: (None, R.csr_product_bound(
+               s.shape[0], s.shape[1], s.nnz, s.nnz, want.nnz, products)))
 
 
 def cli_ops() -> None:
@@ -1096,16 +1297,32 @@ def cli_ops() -> None:
 
 
 def cli_run() -> None:
-    out = subprocess.run(
-        [sys.executable, "-m", PKG, "suite:er_medium", "--json", "--runs",
-         "3"],
-        capture_output=True, text=True, timeout=600, check=True,
-    )
-    record = json.loads(out.stdout.strip().splitlines()[-1])
-    if record.get("verified") is not True:
-        raise AssertionError(f"CLI run not verified: {record}")
-    phase(f"CLI suite:er_medium: verified, mean {record['mean_s'] * 1e3:.3f} "
-          f"ms, {record['gflops']:.3f} GFlops on {record['device']}")
+    """The CLI with ``--roofline`` on er_medium and in bfloat16 on
+    mc2depi_524k, each in a subprocess, each verified."""
+    for spec, extra in (("suite:er_medium", ["--roofline"]),
+                        ("suite:mc2depi_524k", ["--dtype", "bfloat16"])):
+        out = subprocess.run(
+            [sys.executable, "-m", PKG, spec, "--json", "--runs", "3",
+             *extra],
+            capture_output=True, text=True, timeout=600, check=True,
+        )
+        record = json.loads(out.stdout.strip().splitlines()[-1])
+        if record.get("verified") is not True:
+            raise AssertionError(f"CLI run not verified: {record}")
+        text = ""
+        if "roofline" in record:
+            rep = record["roofline"]
+            for key in ("_total", "_bound"):
+                if not 0 < rep[key]["sol_fraction"] <= 1.0:
+                    raise AssertionError(f"CLI roofline {key}: {rep[key]}")
+            text = (f"; --roofline ({record['roofline_method']}): _bound "
+                    f"{rep['_bound']['sol_fraction']:.2%} "
+                    f"({rep['_bound']['bound_by']}), _total "
+                    f"{rep['_total']['sol_fraction']:.2%} of the mean whole "
+                    f"call, {rep['_total']['chip']} data sheet")
+        phase(f"CLI {spec} {' '.join(extra)}: {record['dtype']}, verified, "
+              f"mean {record['mean_s'] * 1e3:.3f} ms, {record['gflops']:.3f} "
+              f"GFlops on {record['device']}{text}")
 
 
 # ---- phase 10: the AMG / ILU0 solver path ---------------------------------
@@ -1177,6 +1394,7 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         reuse,
     )
     from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils import roofline as R
     from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
         assert_csr_equal,
     )
@@ -1184,6 +1402,36 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
 
     def say(msg):
         phase(f"{msg} [{card}]")
+
+    def nbytes(*mats):
+        return sum(R.csr_bytes(x.shape[0], x.nnz) for x in mats)
+
+    def rap_bound(r_sp, a_sp, p_sp, nnz_c):
+        """R·A·P's least work: R, A and P read once, C written once, the
+        products of the cheaper association (scipy structures, host)."""
+        ap, ra = a_sp @ p_sp, r_sp @ a_sp
+        products = min(
+            np.diff(p_sp.indptr)[a_sp.indices].sum()
+            + np.diff(ap.indptr)[r_sp.indices].sum(),
+            np.diff(a_sp.indptr)[r_sp.indices].sum()
+            + np.diff(p_sp.indptr)[ra.indices].sum())
+        return R.StageModel("_bound", float(nbytes(r_sp, a_sp, p_sp)
+                                            + R.csr_bytes(r_sp.shape[0], nnz_c)),
+                            2.0 * products)
+
+    def total(bounds):
+        return R.StageModel("_bound", sum(b.bytes_moved for b in bounds),
+                            sum(b.flops for b in bounds))
+
+    def level_bounds(h, a_first_sp):
+        """The R·A·P bound of every coarse level of hierarchy h."""
+        out, cur = [], a_first_sp
+        for li in range(1, len(h.levels)):
+            nxt = h.levels[li].a.to_scipy()
+            out.append(rap_bound(h.levels[li].r.to_scipy(), cur,
+                                 h.levels[li].p.to_scipy(), nxt.nnz))
+            cur = nxt
+        return out
 
     def median_ms(fn, name):
         return bench(fn, device=device, name=name, warmup=2,
@@ -1234,6 +1482,7 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         ("make_aggrap_plan + rap_aggregation", agg_plan,
          lambda s: aggrap.rap_aggregation(a, s)),
     )
+    rap_b = rap_bound(r_sp, a_sp, p_sp, want.nnz)
     for label, plan, numeric in routes:
         peak = Peak(device).start()
         with Recorder(device, [(dispatch, "choose_method")]) as rec:
@@ -1253,11 +1502,25 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         peak = peak.text()
         assert_csr_equal(c, want, **RAP_TOL)
         picks = ", ".join(f"{sa}·{sb} -> {m}" for sa, sb, m in rec.picks)
+        num_ms = median_ms(num, label)
         say(f"  {label}: verified against scipy (structure exact, rtol "
             f"{RAP_TOL['rtol']:g}, atol {RAP_TOL['atol']:g}); auto took "
             f"[{picks or 'none'}]; launches={got}; {plan_text}; numeric "
-            f"median {median_ms(num, label):.3f} ms (5 after 2 "
+            f"median {num_ms:.3f} ms (5 after 2 "
             f"warmups); whole call {whole_s * 1e3:.1f} ms; {peak}")
+        models = None
+        if plan is None:  # the two products' plan-aware models
+            ap = port.spgemm(a, p)
+            first, _ = R.spgemm_models(a, p, ap, rec.picks[0][2])
+            second, _ = R.spgemm_models(r, ap, c, rec.picks[1][2])
+            models = {**{f"A·P {k}": v for k, v in first.items()},
+                      **{f"R·(AP) {k}": v for k, v in second.items()}}
+            del ap
+        short = label.split(" (")[0]
+        roof(f"{RAP_MATRIX} R·A·P {short} numeric", models, rap_b,
+             num_ms / 1e3)
+        roof(f"{RAP_MATRIX} R·A·P {short} whole call", models, rap_b,
+             whole_s)
     del a, p, r, c
 
     # -- AMG on mc2depi_524k -------------------------------------------------
@@ -1286,6 +1549,9 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         if len(h.levels) < 2 or any(
                 sizes[i + 1][0] >= sizes[i][0] for i in range(len(sizes) - 1)):
             raise AssertionError(f"the hierarchy does not coarsen: {sizes}")
+        roof(f"{AMG_MATRIX} build_hierarchy(smooth={smooth}) setup (device "
+             f"bound: the levels' R·A·P)", None,
+             total(level_bounds(h, a_sp)), setup_s)
 
     # numeric refresh: A's values times 1.5, each level against scipy. A
     # smoothed P takes the triple plan; an aggregation P takes aggrap where
@@ -1316,6 +1582,8 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
             cur = want
         again = median_ms(lambda: amg.numeric_refresh(h, a_new),
                           f"refresh smooth={smooth}")
+        roof(f"{AMG_MATRIX} numeric_refresh(smooth={smooth}) cached", None,
+             total(level_bounds(h2, a_new_sp)), again / 1e3)
         say(f"{AMG_MATRIX} numeric_refresh(A x 1.5), smooth={smooth}: "
             f"routes per coarse level {kinds}; {len(h.levels) - 1} coarse "
             f"levels verified against scipy R·A·P (rtol {RAP_TOL['rtol']:g});"
@@ -1336,6 +1604,16 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
                 / np.linalg.norm(b.astype(np.float64)))
     bt = torch.from_numpy(b).to(device)
     vc_ms = median_ms(lambda: amg.v_cycle(hier[True], bt), "v_cycle")
+    levels = hier[True].levels
+    n_c = levels[-1].a.m
+    # every operator read once, and the coarsest level's dense LU factors
+    # (n_c^2 floats, 2 n_c^2 flops in the two triangular solves)
+    ops = [lv.a.to_scipy() for lv in levels] + [
+        x.to_scipy() for lv in levels[1:] for x in (lv.r, lv.p)]
+    roof(f"{AMG_MATRIX} v_cycle (smoothed hierarchy)", None,
+         R.StageModel("_bound", float(nbytes(*ops) + 4 * n_c * n_c),
+                      2.0 * (sum(x.nnz for x in ops) + n_c * n_c)),
+         vc_ms / 1e3)
     say(f"{AMG_MATRIX} solve(b, tol 1e-4, max_iters 40): {len(hist)} "
         f"residuals {[f'{v:.3e}' for v in hist]}; true residual (float64, "
         f"host) {true_res:.3e}; whole solve {solve_s * 1e3:.1f} ms (setup "
@@ -1353,6 +1631,9 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
     f, ilu_s = host_s(lambda: ilu0.ilu0(a, sweeps=10, plan=plan), device)
     peak = peak.text()
     res = ilu0.ilu0_residual_on_pattern(a, f)
+    a_b = nbytes(a_sp)
+    roof(f"{AMG_MATRIX} ilu0(sweeps=10) (A read, the factor written, once)",
+         None, R.StageModel("_bound", 2.0 * a_b, 0.0), ilu_s)
     say(f"{AMG_MATRIX} ILU0: ilu0_plan {plan_s * 1e3:.1f} ms (host, max_deps "
         f"{plan.dep_l.shape[1]}); ilu0(sweeps=10) {ilu_s * 1e3:.1f} ms "
         f"(upload, sweeps, download); residual on A's pattern {res:.3e} "
@@ -1369,6 +1650,12 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         true_res = (np.linalg.norm(b - a64 @ x.astype(np.float64))
                     / np.linalg.norm(b.astype(np.float64)))
         runs[label] = hist
+        # an iteration reads A (and the factor, on A's pattern) once, and
+        # four vectors
+        roof(f"{AMG_MATRIX} {label} an iteration", None,
+             R.StageModel("_bound", float(a_b * (1 if factor is None else 2)
+                                          + 16 * a_sp.shape[0]),
+                          2.0 * a_sp.nnz), secs / len(hist))
         say(f"{AMG_MATRIX} {label} (tol 1e-5, max_iters 200): {len(hist)} "
             f"iterations ({'converged' if hist[-1] < 1e-5 else 'not converged'}"
             f"), last residual {hist[-1]:.3e}, true residual (float64, host) "
@@ -1397,6 +1684,9 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
     peak = peak.text()
     true_res = (np.linalg.norm(b - a_sp.astype(np.float64) @ x.astype(
         np.float64)) / np.linalg.norm(b.astype(np.float64)))
+    roof(f"{EXACT_MATRIX} exact ILU0-PCG an iteration", None,
+         R.StageModel("_bound", float(2 * nbytes(a_sp) + 16 * a_sp.shape[0]),
+                      4.0 * a_sp.nnz), secs / len(hist))
     say(f"{EXACT_MATRIX} ILU0-PCG (exact, tol 1e-5, max_iters 200): "
         f"{len(hist)} iterations, last residual {hist[-1]:.3e}, true "
         f"residual (float64, host) {true_res:.3e}; "
@@ -1442,8 +1732,12 @@ def main() -> int:
         dia_kernels,
         kernels,
     )
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import chip_spec
 
+    global CHIP
     torch.cuda.set_device(0)
+    CHIP = chip_spec(0)
+    phase(f"roofline prices: {CHIP} (utils/roofline, {kind})")
     # 3. build K1, K2, K3 at once
     t0 = time.perf_counter()
     for name, secs in _build.build_cuda().items():
@@ -1471,6 +1765,10 @@ def main() -> int:
     library_paths(port, kernels, dia_kernels, launches)
     # 10. the AMG / ILU0 solver path
     solver_paths(port, kernels, dia_kernels, launches, card)
+    # 12. bfloat16 through auto; 13. profiles; 14. the roofline shares
+    bf16_paths(port, kernels, dia_kernels, launches)
+    profile_paths(port, os.path.join("_scratch", "traces"))
+    roofline_phase(card)
     phase(f"launches on the paths: {dict(launches)}")
     for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused"):
         if launches[name] <= 0:

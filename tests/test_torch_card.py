@@ -84,6 +84,49 @@ def peak_bytes(fn):
 
 
 @pytest.mark.cuda
+def test_host_mirror_keeps_no_freed_tensor():
+    """A large CSR built on the card (its buffers registered in
+    ``host_view``'s mirror), viewed through ``host_view`` and deleted: the
+    allocated device memory returns to its baseline, without
+    ``clear_host_mirror``."""
+    import gc
+
+    from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import host_view
+
+    need_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    a = T.CSR.from_scipy(generators.SUITE["er_medium"](), device="cuda")
+    c = T.spgemm(a, a, method="esc")
+    for x in (a.rowptr, a.colidx, a.vals, c.rowptr, c.colidx, c.vals):
+        host_view(x)
+    assert torch.cuda.memory_allocated() > base + (8 << 20)
+    del a, c, x
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.cuda
+def test_bfloat16_methods_on_the_card():
+    """bfloat16 through every method on the card (K1, K2 and K3 receive
+    float32 upcasts), against scipy's float32 product of the rounded
+    values at the CLI's bfloat16 tolerance."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import TOLERANCES
+
+    need_card()
+    s = generators.banded(1024, 9, seed=2)
+    a = T.CSR.from_scipy(s, dtype=torch.bfloat16, device="cuda")
+    want = spgemm_reference(a, a)
+    for method in ("auto", "chunked", "grouped", "tilepack", "bsr", "dia",
+                   "dense", "tiled", "fused", "esc", "binned", "hash"):
+        c = T.spgemm(a, a, method=method)
+        assert c.vals.dtype == torch.bfloat16 and c.vals.is_cuda, method
+        assert_csr_equal(c, want, check_explicit_zeros=False,
+                         **TOLERANCES["bfloat16"])
+
+
+@pytest.mark.cuda
 def test_bsr_peak_is_bounded_by_the_chunk_budget():
     """dense_rows_2k's ~65k block pairs would gather 4 GiB of B blocks at
     once; streamed, the peak is one chunk (BSR_CHUNK_BYTES of B blocks,

@@ -173,3 +173,28 @@ def test_sorted_unique_is_np_unique(size, high):
     want = np.unique(x)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+def test_host_mirror_holds_tensors_weakly():
+    """The mirror keeps a weak reference: an entry leaves it when its
+    tensor is collected, so a tensor with a recycled id() never finds the
+    old entry. Meta tensors stand in for device tensors here (the memo
+    serves every tensor off the CPU)."""
+    import gc
+
+    tcsr.clear_host_mirror()
+    x = torch.empty(16, device="meta")
+    host = np.arange(16)
+    tcsr._remember_host(x, host)
+    assert tcsr.host_view(x) is host
+    assert len(tcsr._HOST_MIRROR) == 1
+    del x
+    gc.collect()
+    assert len(tcsr._HOST_MIRROR) == 0
+
+
+def test_bfloat16_host_view_is_float32():
+    x = torch.tensor([1.0, 1.0 / 3.0, -2.5e-3], dtype=torch.bfloat16)
+    got = tcsr.host_view(x)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, x.float().numpy())
