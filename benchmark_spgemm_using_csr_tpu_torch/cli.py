@@ -18,6 +18,16 @@ Contract (the reference package's CLI, ``benchmark_spgemm_using_csr_tpu``):
 ``--device`` (default cuda) names the device; when it is cuda and no CUDA
 device exists the run fails instead of using the CPU.
 
+``--mesh N`` runs C = A @ A over N ranks through ``parallel.dist.dist_spgemm``
+with ``--schedule`` replicated, ring or halo (``--ring-hop`` for the ring):
+N ranks are spawned on this host (``parallel/launch``), rank r on cuda:r
+over NCCL with ``--device cuda`` (N cards needed: fewer is an error, never a
+fall back to the CPU), on the CPU over gloo with ``--device cpu``. Under
+``--multihost`` this process is one rank of a job launched elsewhere
+(``parallel/bootstrap``: ``--coordinator``/``--num-processes``/
+``--process-id``, their environment variables or torchrun's). Rank 0 writes
+the record, with method ``dist/<schedule>x<N>``.
+
 ``--dtype bfloat16`` rounds A's values to bfloat16 and verifies at rtol
 2e-2 / atol 1e-2 against scipy's float32 product of the rounded values.
 ``--roofline`` adds the speed-of-light report (``utils/roofline``) of the
@@ -83,7 +93,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None,
                    help="append a JSONL record to this path")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="distributed run over N devices (not ported yet)")
+                   help="run distributed over an N-rank mesh, one device a "
+                   "rank (0 = single device)")
+    p.add_argument("--schedule", default="replicated",
+                   choices=["replicated", "ring", "halo"],
+                   help="distributed schedule (with --mesh)")
+    p.add_argument("--ring-hop", type=int, default=None, metavar="H",
+                   help="ring schedule: B blocks per resident super-buffer "
+                   "(must divide the mesh size; default P//4 at P>=8)")
+    p.add_argument("--multihost", action="store_true",
+                   help="this process is one rank of a job launched "
+                   "elsewhere: join it (torch.distributed) before building "
+                   "the mesh; topology from --coordinator/--num-processes/"
+                   "--process-id, COORDINATOR_ADDRESS/NUM_PROCESSES/"
+                   "PROCESS_ID or torchrun's MASTER_ADDR/WORLD_SIZE/RANK "
+                   "(see parallel/bootstrap.py)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -115,12 +142,6 @@ def load_matrix(spec: str, dtype):
     return read_mtx(spec, dtype=dtype)
 
 
-def _not_ported(args) -> str | None:
-    if args.mesh:
-        return "--mesh is not ported yet (ROADMAP queue 1, Slice D: parallel/)"
-    return None
-
-
 def _device(spec: str):
     import torch
 
@@ -130,13 +151,39 @@ def _device(spec: str):
     return device
 
 
+# a --mesh group's bounds: every rank must finish within the deadline, and
+# wait at most the process-group timeout at one collective
+MESH_TIMEOUT_S, MESH_PG_TIMEOUT_S = 3600.0, 600.0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reason = _not_ported(args)
-    if reason:
-        raise SystemExit(reason)
     device = _device(args.device)
+    if args.mesh or args.multihost:
+        return run_mesh(args, device)
+    if args.op == "spgemm":
+        return emit_spgemm(args, spgemm_record(args, device))
 
+    import torch
+
+    from . import CSR
+
+    np_dtype = np.float64 if args.dtype == "float64" else np.float32
+    a_sp = load_matrix(args.matrix, np_dtype)
+    a = CSR.from_scipy(a_sp, dtype=getattr(torch, args.dtype), device=device)
+    nnz_a = int(a_sp.nnz)
+
+    if args.op in ("spmv", "spmm"):
+        return run_spmv_spmm(args, device, a, a_sp, nnz_a)
+    if args.op == "spadd":
+        return run_spadd(args, device, a, a_sp, nnz_a)
+    return run_sptrsv(args, device, a_sp)
+
+
+def spgemm_record(args, device, mesh=None) -> dict:
+    """Load A, time C = A @ A (on ``mesh``, every rank taking part, when
+    given), verify against scipy (only rank 0 of a mesh) and return the
+    record."""
     import torch
 
     from . import CSR, spgemm, spgemm_flops
@@ -147,26 +194,22 @@ def main(argv=None) -> int:
     a_sp = load_matrix(args.matrix, np_dtype)
     a = CSR.from_scipy(a_sp, dtype=getattr(torch, args.dtype), device=device)
     m, n = a.shape
-    nnz_a = int(a_sp.nnz)
-
-    if args.op in ("spmv", "spmm"):
-        return run_spmv_spmm(args, device, a, a_sp, nnz_a)
-    if args.op == "spadd":
-        return run_spadd(args, device, a, a_sp, nnz_a)
-    if args.op == "sptrsv":
-        return run_sptrsv(args, device, a_sp)
-
     flops = spgemm_flops(a, a)
-    nnz_ct = flops // 2
 
-    run = lambda: spgemm(a, a, method=args.method, trim=False)  # noqa: E731
+    if mesh is None:
+        run = lambda: spgemm(a, a, method=args.method, trim=False)  # noqa: E731
+    else:
+        from .parallel.dist import dist_spgemm
+
+        run = lambda: dist_spgemm(  # noqa: E731
+            a, a, mesh, schedule=args.schedule, ring_hop=args.ring_hop)
     c = run()
     nnz_c = int(c.rowptr[-1])
     res = bench(run, device=device, name=args.matrix, warmup=args.warmup,
                 runs=args.runs, flops=flops, nnz_out=nnz_c)
 
     verified = None
-    if not args.no_verify:
+    if not args.no_verify and (mesh is None or mesh.rank == 0):
         golden = spgemm_reference(a, a)
         try:
             # scipy drops sums that cancel to exactly 0, which bfloat16's
@@ -182,13 +225,14 @@ def main(argv=None) -> int:
 
     record = {
         "matrix": args.matrix,
-        "method": args.method,
+        "method": (args.method if mesh is None
+                   else f"dist/{args.schedule}x{mesh.size}"),
         "dtype": args.dtype,
         "device": res.device,
         "m": m,
         "n": n,
-        "nnz_a": nnz_a,
-        "nnz_ct": int(nnz_ct),
+        "nnz_a": int(a_sp.nnz),
+        "nnz_ct": int(flops // 2),
         "nnz_c": nnz_c,
         "mean_s": res.mean_s,
         "min_s": res.min_s,
@@ -199,23 +243,84 @@ def main(argv=None) -> int:
     }
     if args.roofline:
         record.update(roofline_record(args, device, a, c, res))
+    return record
 
+
+def emit_spgemm(args, record: dict) -> int:
+    """Write the SpGEMM record (JSON or text) and return the exit code."""
+    verified = record["verified"]
     if _emit(args, record):
-        print(f"matrix     : {args.matrix}  ({m} x {n}, nnzA = {nnz_a})")
+        print(f"matrix     : {args.matrix}  ({record['m']} x {record['n']}, "
+              f"nnzA = {record['nnz_a']})")
         print(f"method     : {record['method']}  dtype={args.dtype}  "
-              f"device={res.device}")
-        print(f"nnzCt      : {nnz_ct}  (intermediate products; flops = {flops})")
-        print(f"nnzC       : {nnz_c}")
-        print(f"time       : mean {res.mean_s * 1e3:.3f} ms   best "
-              f"{res.min_s * 1e3:.3f} ms  ({args.runs} runs)")
-        print(f"GFlops     : mean {res.gflops:.4f}   best {res.gflops_best:.4f}")
-        print(f"nnz/s      : {res.nnz_per_s:.3e}")
+              f"device={record['device']}")
+        print(f"nnzCt      : {record['nnz_ct']}  (intermediate products; "
+              f"flops = {2 * record['nnz_ct']})")
+        print(f"nnzC       : {record['nnz_c']}")
+        print(f"time       : mean {record['mean_s'] * 1e3:.3f} ms   best "
+              f"{record['min_s'] * 1e3:.3f} ms  ({args.runs} runs)")
+        print(f"GFlops     : mean {record['gflops']:.4f}   best "
+              f"{record['gflops_best']:.4f}")
+        print(f"nnz/s      : {record['nnz_per_s']:.3e}")
         if verified is not None:
             print(f"verify     : {'PASS' if verified else 'FAIL'} (vs scipy golden)")
         if args.roofline:
             print(f"roofline   : {record['roofline_method']}")
             print(json.dumps(record["roofline"], indent=2))
     return 0 if verified in (True, None) else 1
+
+
+def _mesh_rank(mesh, argv) -> dict:
+    """One spawned rank of ``--mesh``: the SpGEMM run on its device."""
+    args = build_parser().parse_args(argv)
+    return spgemm_record(args, mesh.device, mesh)
+
+
+def run_mesh(args, device) -> int:
+    """``--mesh N``: spawn N ranks here, or (``--multihost``) join a job
+    as one rank. Rank 0's record is written."""
+    if args.op != "spgemm":
+        raise SystemExit(f"--mesh runs --op spgemm, not {args.op}")
+    if args.roofline:
+        raise SystemExit("--roofline prices a single-device method; "
+                         "it does not take --mesh")
+    if args.multihost:
+        from .parallel.bootstrap import global_mesh, init_multihost, shutdown
+
+        topo = init_multihost(args.coordinator, args.num_processes,
+                              args.process_id, device=device.type)
+        print(f"multihost  : process {topo.process_id}/{topo.process_count}"
+              f" over {topo.backend} on {topo.device}", file=sys.stderr)
+        try:
+            mesh = global_mesh(args.mesh or None)
+            record = (None if mesh is None
+                      else spgemm_record(args, mesh.device, mesh))
+        finally:
+            shutdown()
+        if mesh is None or mesh.rank != 0:
+            return 0  # rank 0 verifies and writes the record
+        return emit_spgemm(args, record)
+
+    if args.mesh < 1:
+        raise SystemExit(f"--mesh {args.mesh}: needs at least one rank")
+    if device.type == "cuda":
+        import torch
+
+        have = torch.cuda.device_count()
+        if args.mesh > have:
+            raise SystemExit(f"need {args.mesh} devices, have {have}")
+    from .parallel.launch import spawn
+
+    argv = [args.matrix, "--dtype", args.dtype, "--runs", str(args.runs),
+            "--warmup", str(args.warmup), "--schedule", args.schedule]
+    if args.ring_hop is not None:
+        argv += ["--ring-hop", str(args.ring_hop)]
+    if args.no_verify:
+        argv.append("--no-verify")
+    record = spawn(_mesh_rank, args.mesh, argv, device=device.type,
+                   timeout_s=MESH_TIMEOUT_S,
+                   pg_timeout_s=MESH_PG_TIMEOUT_S)[0]
+    return emit_spgemm(args, record)
 
 
 def roofline_record(args, device, a, c, res) -> dict:

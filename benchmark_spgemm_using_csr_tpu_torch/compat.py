@@ -15,7 +15,8 @@ inside, everything routes through the functional facade (api.spgemm).
 
 ``amg_hierarchy_from_levels`` carries an AMG hierarchy across from the
 reference package: its levels as host arrays in, the port's
-``models.amg.AMGHierarchy`` out.
+``models.amg.AMGHierarchy`` out; ``sharded_csr_from_arrays`` does the same
+for a row-sharded matrix (``parallel.dist.ShardedCSR``).
 """
 from __future__ import annotations
 
@@ -112,3 +113,28 @@ def amg_hierarchy_from_levels(levels, *, device):
         p = None if p is None else CSR.from_numpy(*p, device=device)
         out.append(Level(a=a, p=p, r=None if p is None else csr_transpose(p)))
     return AMGHierarchy(out)
+
+
+def sharded_csr_from_arrays(rowptr, colidx, vals, shape, bounds=None, *,
+                            device):
+    """The port's ``parallel.dist.ShardedCSR`` from the reference package's:
+    its stacked (P, m_loc + 1) rowptr and (P, cap) colidx / vals as host
+    arrays (``np.asarray`` of its buffers), its shape and its bounds (None
+    for the uniform partition), on ``device``. ``dist.local_shard(sh,
+    rank)`` then gives a rank's block."""
+    from .parallel.dist import ShardedCSR
+
+    rowptr = np.asarray(rowptr, np.int32)
+    colidx = np.asarray(colidx, np.int32)
+    vals = np.asarray(vals)
+    if rowptr.ndim != 2 or colidx.shape != vals.shape or (
+            colidx.shape[:1] != rowptr.shape[:1]):
+        raise ValueError(f"stacked shapes disagree: rowptr {rowptr.shape}, "
+                         f"colidx {colidx.shape}, vals {vals.shape}")
+    return ShardedCSR(
+        torch.from_numpy(rowptr.copy()).to(device),
+        torch.from_numpy(colidx.copy()).to(device),
+        torch.from_numpy(vals.copy()).to(device),
+        (int(shape[0]), int(shape[1])),
+        bounds=None if bounds is None else tuple(int(x) for x in bounds),
+    )

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..sparse.csr import CSR, host_view, sorted_unique
+from ..sparse.csr import CSR, IdentityMemo, host_view, sorted_unique
 from ..sparse.dia import dia_offsets_of
 
 # measured on a TPU v5e, not yet calibrated for the H100
@@ -47,24 +47,24 @@ SCATTER_DESC_PER_S = 1.38e8
 HBM_BYTES_PER_S = 8.0e11
 
 
-def _mstats(x: CSR, _cache={}):
+# per-matrix host stats, keyed by the identity of (rowptr, colidx)
+_MSTATS = IdentityMemo(8)
+
+
+def _mstats(x: CSR):
     """One host copy of (rowptr, colidx) + per-matrix derived stats,
-    memoized on the buffers' ids in a small LRU. The memo holds the keyed
-    buffers: ids recycle after garbage collection, and a stale hit would
-    return another matrix's stats."""
-    key = (id(x.rowptr), id(x.colidx))
-    hit = _cache.get(key)
+    memoized on the buffers' identities in a small LRU that holds them
+    weakly (``IdentityMemo``): a recycled id() never returns another
+    matrix's stats, and the memo keeps no index array alive."""
+    hit = _MSTATS.get((x.rowptr, x.colidx))
     if hit is not None:
-        _cache[key] = _cache.pop(key)  # refresh recency
-        return hit[0]
+        return hit
     rowptr = host_view(x.rowptr)
     nnz = int(rowptr[-1])
     row_lens = np.diff(rowptr).astype(np.int64)
     cols = host_view(x.colidx)[:nnz].astype(np.int64)
-    if len(_cache) >= 8:
-        _cache.pop(next(iter(_cache)))
-    _cache[key] = ((rowptr, nnz, row_lens, cols), (x.rowptr, x.colidx))
-    return _cache[key][0]
+    return _MSTATS.put((x.rowptr, x.colidx), (),
+                       (rowptr, nnz, row_lens, cols))
 
 
 def _stats(a: CSR, b: CSR | None = None):

@@ -28,8 +28,69 @@ Shape = Tuple[int, int]
 
 INDEX_DTYPE = torch.int32
 
-# id(device tensor) -> (host array, weak reference to the tensor)
-_HOST_MIRROR: dict = {}
+
+def _version(t: torch.Tensor):
+    """torch's count of in-place writes to ``t`` (None for an inference
+    tensor, which keeps no count)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+class IdentityMemo:
+    """A bounded memo keyed by the identity of tensors (plus hashable
+    extras) that holds each keyed tensor weakly. An entry leaves when one
+    of its tensors is collected, so a recycled ``id()`` never finds another
+    tensor's entry and the memo keeps no tensor alive. An entry misses once
+    one of its tensors has been written in place since it was stored
+    (torch's version counter), so a value derived from the old contents is
+    never returned. Past ``cap`` entries the least recently used one
+    leaves."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        # key -> (value, weak references to the keyed tensors, versions)
+        self._entries: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def get(self, tensors, extra=()):
+        """The value stored for these very tensors (and extras), or None."""
+        key = tuple(id(t) for t in tensors) + tuple(extra)
+        hit = self._entries.pop(key, None)
+        if hit is None or any(r() is not t for r, t in zip(hit[1], tensors)):
+            return None
+        if hit[2] != tuple(_version(t) for t in tensors):
+            return None  # written in place since: the entry is stale
+        self._entries[key] = hit  # most recently used last
+        return hit[0]
+
+    def put(self, tensors, extra, value):
+        key = tuple(id(t) for t in tensors) + tuple(extra)
+        self._entries.pop(key, None)
+        while len(self._entries) >= self.cap:
+            self._entries.pop(next(iter(self._entries)))
+        forget = functools.partial(self._forget, key)
+        self._entries[key] = (value, tuple(weakref.ref(t, forget)
+                                           for t in tensors),
+                              tuple(_version(t) for t in tensors))
+        return value
+
+    def _forget(self, key, ref) -> None:
+        """A weak reference's callback: drop the entry of a collected
+        tensor (unless the key already names a newer entry)."""
+        hit = self._entries.get(key)
+        if hit is not None and any(r is ref for r in hit[1]):
+            del self._entries[key]
+
+
+# device tensor -> its host array; 256 entries bound the host memory held
+_HOST_MIRROR = IdentityMemo(256)
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -45,17 +106,15 @@ def host_view(x) -> np.ndarray:
     """Host numpy view of a possibly-device tensor (bfloat16 as float32),
     memoized for device tensors. Plan construction reads the same CSR
     buffers many times; on CUDA each uncached call is a device->host copy
-    and a sync. The memo holds a weak reference to each tensor, and an
-    entry leaves it when its tensor is collected: a recycled id() never
-    finds another tensor's data, and the memo keeps no device memory
-    alive."""
+    and a sync. The memo holds each tensor weakly (``IdentityMemo``), so
+    it keeps no device memory alive."""
     if isinstance(x, np.ndarray):
         return x
     if x.device.type == "cpu":
         return _to_numpy(x)
-    hit = _HOST_MIRROR.get(id(x))
-    if hit is not None and hit[1]() is x:
-        return hit[0]
+    hit = _HOST_MIRROR.get((x,))
+    if hit is not None:
+        return hit
     v = _to_numpy(x)
     _remember_host(x, v)
     return v
@@ -63,21 +122,8 @@ def host_view(x) -> np.ndarray:
 
 def _remember_host(dev, host) -> None:
     """Pre-populate the host mirror when the host already has the data."""
-    if dev.device.type == "cpu":
-        return
-    if len(_HOST_MIRROR) >= 256:  # a bound on the host memory it holds
-        _HOST_MIRROR.clear()
-    key = id(dev)
-    _HOST_MIRROR[key] = (host, weakref.ref(
-        dev, functools.partial(_forget_host, key)))
-
-
-def _forget_host(key: int, ref) -> None:
-    """The weak reference's callback: drop the entry of a collected tensor
-    (unless the id already names a newer entry)."""
-    hit = _HOST_MIRROR.get(key)
-    if hit is not None and hit[1] is ref:
-        del _HOST_MIRROR[key]
+    if dev.device.type != "cpu":
+        _HOST_MIRROR.put((dev,), (), host)
 
 
 def clear_host_mirror() -> None:

@@ -99,7 +99,22 @@ Phases, each printing one line (or a few):
    (``utils/roofline``, the card's data-sheet row): each time's ``_bound``
    share and plan-aware ``_total`` share with the resource that bounds
    it, beside the card's name and power limit; fails if any share
-   exceeds 1.0.
+   exceeds 1.0;
+15. the distributed schedules (``parallel/``): NCCL at world size
+   ``torch.cuda.device_count()`` (at most 4; in this process at 1, where
+   the ring's shifts onto the rank itself are copies and the all-to-all
+   and the gather run through NCCL), its world size and backend printed;
+   ``dist_spgemm(A, A)`` with the replicated, ring and halo schedules on
+   scircuit_256k and powerlaw_medium at full size, each verified against
+   scipy at the CLI's tolerance, with the local kernel the facade picked,
+   the host plan, the numeric median (CUDA events, 2 warmups, 5 runs), the
+   whole call with its plan, the peak device memory above the start and
+   the bytes each rank sends, read from the plan, beside the single-chip
+   ``spgemm(auto)`` numeric median; ``dist_spadd(A, A^T)`` on mc2depi_524k
+   beside the single-chip ``spadd_planned``; the group torn down; then the
+   CLI's ``suite:powerlaw_medium --mesh 1 --schedule halo`` (verified, as
+   ``dist/halox1``) and ``--mesh`` one past the cards, which must exit
+   non-zero. No kernel of K1-K3 lies on these paths.
 
 The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
 launch counts of phases 7-10 and 12 are set to 0 just before each path is
@@ -1696,6 +1711,160 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         raise AssertionError(f"exact ILU0-PCG: {hist[-1]:.3e}, {true_res:.3e}")
 
 
+# ---- phase 15: the distributed schedules on the card ---------------------
+
+DIST_MATRICES = ("scircuit_256k", "powerlaw_medium")
+DIST_ADD_MATRIX = "mc2depi_524k"  # dist_spadd(A, A^T)
+DIST_MAX_WORLD = 4
+
+
+def dist_sent_bytes(plan, schedule: str, b_cap: int, rank: int,
+                    dtype) -> int:
+    """The bytes ``rank`` sends in one call, read from the plan: none for
+    replicated; for the ring, H-1 prologue shifts and P/H - 1 hops of H
+    blocks of b_cap (column, value) pairs, the value as float32 bits where
+    it rides in them; for the halo, its row of the send sizes times a
+    column and a value. (The gather of C comes on top.)"""
+    if schedule == "replicated":
+        return 0
+    if schedule == "ring":
+        packed = dtype in (torch.float32, torch.bfloat16, torch.float16)
+        pair = 8 if packed else 4 + dtype.itemsize
+        st = plan.statics
+        hops = st.n_shards // st.hop - 1
+        return (st.hop - 1 + hops * st.hop) * b_cap * pair
+    return int(plan.send_sizes[rank].sum()) * (4 + dtype.itemsize)
+
+
+def dist_rank(mesh, card: str) -> None:
+    """Phase 15 on one rank (rank 0 prints): every schedule on the
+    DIST_MATRICES and dist_spadd on DIST_ADD_MATRIX, at full size, each
+    verified against scipy, beside the single-chip numeric median."""
+    import benchmark_spgemm_using_csr_tpu_torch as port
+    from benchmark_spgemm_using_csr_tpu_torch.parallel import dist
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+        spgemm_reference,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
+
+    say = phase if mesh.rank == 0 else (lambda msg: None)
+    dev = mesh.device
+    say(f"phase 15: torch.distributed world size {mesh.size}, backend "
+        f"{mesh.backend}, rank {mesh.rank} on {dev} [{card}]")
+    for name in DIST_MATRICES:
+        a = port.CSR.from_scipy(generators.SUITE[name](), device=dev)
+        golden = spgemm_reference(a, a)
+        products = port.spgemm_flops(a, a) // 2
+        method = port.choose_method(a, a)
+        one = bench(numeric_fn(port, a, method), device=dev, warmup=2,
+                    runs=5)
+        say(f"{name} single-chip spgemm(auto) -> {method}: numeric median "
+            f"{one.median_s * 1e3:.3f} ms [{card}]")
+        for schedule in ("replicated", "ring", "halo"):
+            dist._PLAN_CACHE.clear()
+            dist._SHARD_CACHE.clear()
+            peak = Peak(dev).start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = dist.dist_plan(a, a, mesh.size, schedule)
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            c = dist.dist_spgemm(a, a, mesh, schedule=schedule)
+            torch.cuda.synchronize()
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            peak_text = peak.text()
+            assert_csr_equal(c, golden, **F32_TOL)
+            num = bench(lambda: dist.dist_spgemm_local(a, a, mesh, plan,
+                                                       schedule),
+                        device=dev, warmup=2, runs=5, flops=2 * products)
+            if schedule == "replicated":
+                kernel = ("grouped" if isinstance(plan, dist.DistGroupedPlan)
+                          else "chunked")
+            elif schedule == "ring":
+                kernel = (f"ring expansion k={plan.statics.k} hop="
+                          f"{plan.statics.hop} + merge")
+            else:
+                kernel = "chunked against the halo"
+            b_cap = dist.shard_rows_cached(a, mesh.size).cap
+            sent = dist_sent_bytes(plan, schedule, b_cap, mesh.rank, a.dtype)
+            say(f"{name} dist_spgemm {schedule} x{mesh.size}: local kernel "
+                f"{kernel}; verified; host plan {plan_ms:.1f} ms; numeric "
+                f"median {num.median_s * 1e3:.3f} ms = "
+                f"{num.gflops_median:.3f} GFlops (single-chip "
+                f"{one.median_s * 1e3:.3f} ms); whole call (plan built) "
+                f"{whole_ms:.1f} ms; {peak_text}; rank {mesh.rank} sends "
+                f"{sent} bytes a call [{card}]")
+        del a, c, golden
+    a = port.CSR.from_scipy(generators.SUITE[DIST_ADD_MATRIX](), device=dev)
+    at = port.csr_transpose(a)
+    sa = a.to_scipy()
+    peak = Peak(dev).start()
+    t0 = time.perf_counter()
+    c = dist.dist_spadd(a, at, mesh)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    peak_text = peak.text()
+    assert_csr_equal(c, (sa + sa.T).tocsr(), **F32_TOL)
+    num = bench(lambda: dist.dist_spadd(a, at, mesh), device=dev, warmup=2,
+                runs=5)
+    add_plan = port.make_add_plan(a, at)
+    one = bench(lambda: port.spadd_planned(a, at, add_plan), device=dev,
+                warmup=2, runs=5)
+    say(f"{DIST_ADD_MATRIX} dist_spadd(A, A^T) x{mesh.size}: verified; "
+        f"first call {whole_ms:.1f} ms; median (shards cached, gather "
+        f"included) {num.median_s * 1e3:.3f} ms (single-chip spadd_planned "
+        f"{one.median_s * 1e3:.3f} ms); {peak_text}; no exchange [{card}]")
+
+
+def dist_phase(card: str) -> None:
+    """Phase 15: NCCL at world size torch.cuda.device_count() (at most
+    DIST_MAX_WORLD): in this process at world size 1, else one spawned
+    rank per card; the group is torn down before the phase returns. Then
+    the CLI's --mesh on the card."""
+    from benchmark_spgemm_using_csr_tpu_torch.parallel import bootstrap
+    from benchmark_spgemm_using_csr_tpu_torch.parallel.launch import (
+        free_port,
+        spawn,
+    )
+
+    world = min(torch.cuda.device_count(), DIST_MAX_WORLD)
+    if world == 1:
+        bootstrap.init_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                 device="cuda")
+        try:
+            dist_rank(bootstrap.global_mesh(), card)
+        finally:
+            bootstrap.shutdown()
+    else:
+        spawn(dist_rank, world, card, device="cuda", timeout_s=900)
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase 15 left a process group up")
+
+    out = subprocess.run(
+        [sys.executable, "-m", PKG, "suite:powerlaw_medium", "--mesh", "1",
+         "--schedule", "halo", "--json", "--runs", "3"],
+        capture_output=True, text=True, timeout=600, check=True,
+    )
+    record = json.loads(out.stdout.strip().splitlines()[-1])
+    if record.get("verified") is not True or record["method"] != "dist/halox1":
+        raise AssertionError(f"CLI --mesh 1 --schedule halo: {record}")
+    phase(f"CLI suite:powerlaw_medium --mesh 1 --schedule halo: "
+          f"{record['method']}, verified, mean {record['mean_s'] * 1e3:.3f} "
+          f"ms on {record['device']} [{card}]")
+    n_cards = torch.cuda.device_count()
+    over = subprocess.run(
+        [sys.executable, "-m", PKG, "suite:powerlaw_medium", "--mesh",
+         str(n_cards + 1), "--json"],
+        capture_output=True, text=True, timeout=300,
+    )
+    if over.returncode == 0:
+        raise AssertionError(f"--mesh {n_cards + 1} on a {n_cards}-card host "
+                             "exited 0")
+    phase(f"CLI --mesh {n_cards + 1} on a {n_cards}-card host: exit "
+          f"{over.returncode} ({over.stderr.strip().splitlines()[-1]})")
+
+
 def kernel_entry(name, source, replaces, launches, numbers) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
@@ -1769,6 +1938,8 @@ def main() -> int:
     bf16_paths(port, kernels, dia_kernels, launches)
     profile_paths(port, os.path.join("_scratch", "traces"))
     roofline_phase(card)
+    # 15. the distributed schedules (no kernel of K1-K3 on their path)
+    dist_phase(card)
     phase(f"launches on the paths: {dict(launches)}")
     for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused"):
         if launches[name] <= 0:

@@ -140,16 +140,15 @@ def test_cli_json_on_cpu(capsys, dtype):
     ["--mesh", "2"], ["--roofline"], ["--dtype", "bfloat16"],
 ])
 def test_cli_unported_options_exit(args, capsys):
-    """--mesh alone still exits "not ported"; --roofline and --dtype
-    bfloat16 are ported and run to a verified record."""
+    """Every option that once exited "not ported" (--mesh, --roofline,
+    --dtype bfloat16) now runs to a verified record; --mesh 2 over two
+    gloo ranks, as method dist/replicatedx2."""
     argv = ["suite:er_small", "--device", "cpu"] + args
-    if args[0] == "--mesh":
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main(argv)
-        return
     assert cli.main(argv + ["--json", "--runs", "1", "--warmup", "0"]) == 0
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["verified"] is True
+    if args[0] == "--mesh":
+        assert record["method"] == "dist/replicatedx2"
 
 
 @pytest.mark.parametrize("method", ["dia", "tiled", "binned"])

@@ -168,6 +168,12 @@ def test_cli_roofline(capsys, spec, method):
     assert rep["_total"]["sol_fraction"] is None
 
 
-def test_cli_mesh_not_ported():
-    with pytest.raises(SystemExit, match="--mesh is not ported"):
-        cli.main(["gen:er:128", "--device", "cpu", "--mesh", "2"])
+def test_cli_mesh_not_ported(capsys):
+    """--mesh is ported: bfloat16 over two gloo ranks (the ring carries
+    the values as float32 bits) runs to a verified record."""
+    rc = cli.main(["gen:er:128", "--device", "cpu", "--mesh", "2",
+                   "--schedule", "ring", "--dtype", "bfloat16", "--json",
+                   "--runs", "1", "--warmup", "0"])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["verified"] is True
+    assert (record["method"], record["dtype"]) == ("dist/ringx2", "bfloat16")

@@ -1,6 +1,7 @@
 """The port's paths without a kernel of their own (bsr, dense, hash, fused,
-out-of-core, SpMV/SpAdd/SpTRSV, BhSparse, the AMG / ILU0 solver path and
-the peak memory of bsr and the out-of-core path) on a CUDA device, against the
+out-of-core, SpMV/SpAdd/SpTRSV, BhSparse, the AMG / ILU0 solver path, the
+distributed schedules over NCCL at world size 1 and the peak memory of bsr
+and the out-of-core path) on a CUDA device, against the
 scipy golden at the CLI's float32 tolerances (rtol 1e-4 / atol 1e-5).
 These tests need the card and skip without one; the card has no jax, so
 run them there without the repository's conftest:
@@ -263,3 +264,50 @@ def test_bhsparse_reports_the_card():
     np.testing.assert_array_equal(rowptr, want.indptr)
     np.testing.assert_array_equal(colidx, want.indices)
     np.testing.assert_allclose(vals, want.data, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["replicated", "ring", "halo"])
+def test_dist_schedules_at_world_size_one_on_the_card(schedule):
+    """dist_spgemm over a 1-rank NCCL group equals spgemm(auto) on the card
+    (and scipy); a CPU tensor never travels on NCCL."""
+    need_card()
+    from benchmark_spgemm_using_csr_tpu_torch.parallel import bootstrap
+    from benchmark_spgemm_using_csr_tpu_torch.parallel.dist import dist_spgemm
+    from benchmark_spgemm_using_csr_tpu_torch.parallel.launch import free_port
+
+    bootstrap.init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = bootstrap.global_mesh()
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        a = T.CSR.from_scipy(generators.power_law(
+            2048, 2048, alpha=1.8, max_deg=256, seed=1), device="cuda")
+        c = dist_spgemm(a, a, mesh, schedule=schedule)
+        one = T.spgemm(a, a, method="auto")
+        nnz = int(one.rowptr[-1])
+        assert c.vals.is_cuda
+        assert torch.equal(c.rowptr, one.rowptr)
+        assert torch.equal(c.colidx[:nnz], one.colidx[:nnz])
+        torch.testing.assert_close(c.vals[:nnz], one.vals[:nnz], **TOL)
+        assert_csr_equal(c, spgemm_reference(a, a), **TOL)
+        with pytest.raises(ValueError, match="cannot travel on nccl"):
+            mesh.ring_shift(torch.zeros(4), 1)
+    finally:
+        bootstrap.shutdown()
+
+
+@pytest.mark.cuda
+def test_cli_mesh_past_the_cards_exits_nonzero():
+    """--mesh one past the visible cards exits non-zero with the
+    reference's message; it never falls back to the CPU."""
+    need_card()
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count()
+    out = subprocess.run(
+        [sys.executable, "-m", "benchmark_spgemm_using_csr_tpu_torch",
+         "suite:er_small", "--mesh", str(n + 1), "--json"],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert f"need {n + 1} devices, have {n}" in out.stderr
