@@ -34,14 +34,14 @@ from .ops.esc import spgemm_esc_padded
 from .ops.chunked import make_chunked_plan, spgemm_chunked
 from .ops.grouped import make_grouped_plan, spgemm_grouped
 from .ops.tilepack import make_tilepack_plan, spgemm_tilepack
-from .ops.dia import dia_spgemm, spgemm_dia
+from .ops.dia import dia_spgemm, dia_spmv, dia_viable, spgemm_dia
 from .ops.dia_kernels import dia_spgemm_fused
 from .ops.tiled import make_tiled_plan, spgemm_tiled
 from .ops.binned import spgemm_binned_host
 from .ops.bsr import bsr_spgemm, make_bsr_plan, spgemm_bsr
 from .ops.dense import make_dense_plan, spgemm_dense, spgemm_dense_auto
 from .ops.hash import spgemm_hash
-from .ops.fused import spgemm_fused
+from .ops.fused import make_plan as make_fused_plan, spgemm_fused
 from .ops.batched import make_batched_plan, spgemm_batched
 from .ops.spmv import bsr_spmm, spmm, spmv, spmv_t
 from .ops.spadd import make_add_plan, spadd, spadd_planned
@@ -72,6 +72,8 @@ __all__ = [
     "spgemm_tilepack",
     "dia_spgemm",
     "dia_spgemm_fused",
+    "dia_spmv",
+    "dia_viable",
     "spgemm_dia",
     "make_tiled_plan",
     "spgemm_tiled",
@@ -84,6 +86,7 @@ __all__ = [
     "spgemm_dense",
     "spgemm_dense_auto",
     "spgemm_hash",
+    "make_fused_plan",
     "spgemm_fused",
     "make_batched_plan",
     "spgemm_batched",

@@ -14,6 +14,31 @@ from .ops import symbolic
 from .ops.esc import spgemm_esc_padded
 from .sparse.csr import CSR, pad_bucket
 
+
+def resolve_method(a: CSR, b: CSR, plans: dict | None = None) -> str:
+    """The method ``spgemm(a, b, method="auto")`` runs: the cost model's
+    pick (ops/dispatch), or chunked where the pick is tilepack or grouped
+    and its plan refuses the operands (the cost model and the plans share
+    regime gates, but a plan sees statics the estimator approximates).
+    ``plans``, when given, receives the host plans built on the way (keys
+    "tilepack" and "grouped")."""
+    from .ops.dispatch import choose_method
+
+    plans = {} if plans is None else plans
+    method = choose_method(a, b, plans)
+    if method == "tilepack" and "tilepack" not in plans:
+        from .ops.tilepack import make_tilepack_plan
+
+        plans["tilepack"] = make_tilepack_plan(a, b)
+    elif method == "grouped":
+        from .ops.grouped import make_grouped_plan
+
+        plans["grouped"] = make_grouped_plan(a, b)
+    if method in ("tilepack", "grouped") and plans[method] is None:
+        return "chunked"
+    return method
+
+
 def spgemm(
     a: CSR,
     b: CSR,
@@ -24,9 +49,10 @@ def spgemm(
 ) -> CSR:
     """C = A @ B.
 
-    method: 'auto' (cost-model dispatch), 'esc', 'chunked', 'bsr',
-    'dense', 'dia', 'fused', 'binned', 'hash', 'tiled', 'tilepack' or
-    'grouped'. Explicit kwargs override ``config`` (a SpGemmConfig).
+    method: 'auto' (cost-model dispatch, ``resolve_method``), 'esc',
+    'chunked', 'bsr', 'dense', 'dia', 'fused', 'binned', 'hash', 'tiled',
+    'tilepack' or 'grouped'. Explicit kwargs override ``config`` (a
+    SpGemmConfig).
     trim: shrink C's padded buffers to pad_bucket(nnzC).
     """
     config = config or DEFAULT
@@ -36,12 +62,9 @@ def spgemm(
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    auto = method == "auto"
-    plans = {}  # host plans the dispatcher built while pricing
-    if auto:
-        from .ops.dispatch import choose_method
-
-        method = choose_method(a, b, plans)
+    plans = {}  # host plans built while resolving "auto"
+    if method == "auto":
+        method = resolve_method(a, b, plans)
     if method == "chunked":
         from .ops.chunked import make_chunked_plan, spgemm_chunked
 
@@ -68,15 +91,9 @@ def spgemm(
     elif method == "tilepack":
         from .ops.tilepack import make_tilepack_plan, spgemm_tilepack
 
-        if "tilepack" in plans:
-            sched = plans["tilepack"]
-        else:
-            sched = make_tilepack_plan(a, b)
+        sched = (plans["tilepack"] if "tilepack" in plans
+                 else make_tilepack_plan(a, b))
         if sched is None:
-            # the cost model and the plan share regime gates, but the
-            # plan sees statics the estimator approximates
-            if auto:
-                return spgemm(a, b, method="chunked", trim=trim, config=config)
             raise ValueError(
                 "matrix outside the packed-tile regime (short rows, float32)"
             )
@@ -84,10 +101,9 @@ def spgemm(
     elif method == "grouped":
         from .ops.grouped import make_grouped_plan, spgemm_grouped
 
-        gsched = make_grouped_plan(a, b)
+        gsched = (plans["grouped"] if "grouped" in plans
+                  else make_grouped_plan(a, b))
         if gsched is None:
-            if auto:
-                return spgemm(a, b, method="chunked", trim=trim, config=config)
             raise ValueError(
                 "matrix outside the grouped regime (float32/float64 values, "
                 "nonzero products)"

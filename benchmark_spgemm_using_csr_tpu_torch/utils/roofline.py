@@ -497,14 +497,17 @@ def _bsr_counts(a, b, c, block_shape=(8, 128), bn: int = 128):
     return pairs, int(a_b.indptr[-1]), int(b_b.indptr[-1]), int(c_b.indptr[-1])
 
 
-def spgemm_models(a, b, c, method: str, *, planes: bool = False):
+def spgemm_models(a, b, c, method: str, *, planes: bool = False,
+                  plan=None):
     """(stage models, ``_bound``) of C = A @ B computed by ``method`` (a
     resolved method, not 'auto') from the port's own plans: the plan-aware
     model of tilepack, grouped and chunked (their host plans; a plan that
     does not fit falls to chunked, as ``api.spgemm`` does), dia, bsr and
     dense, as the reference bench chooses; the generic expand-sort-
     compress model for the methods with none. ``planes``: the timed
-    window receives dia's operands as DIA planes, not CSR."""
+    window receives dia's operands as DIA planes, not CSR. ``plan``: the
+    tilepack or grouped schedule or chunked plan that the timed run used
+    (built here when None)."""
     from ..ops import symbolic
     from ..sparse.csr import host_view
     from ..sparse.dia import dia_offsets_of
@@ -546,22 +549,22 @@ def spgemm_models(a, b, c, method: str, *, planes: bool = False):
     if method == "tilepack":
         from ..ops.tilepack import make_tilepack_plan
 
-        sched = make_tilepack_plan(a, b)
+        sched = plan if plan is not None else make_tilepack_plan(a, b)
         if sched is not None:
             return tilepack_stage_models(sched.plan, **args), bound
         method = "chunked"
     if method == "grouped":
         from ..ops.grouped import make_grouped_plan
 
-        sched = make_grouped_plan(a, b)
+        sched = plan if plan is not None else make_grouped_plan(a, b)
         if sched is not None:
             return grouped_stage_models(sched.plan, **args), bound
         method = "chunked"
     if method == "chunked":
         from ..ops.chunked import make_chunked_plan
 
-        return chunked_stage_models(make_chunked_plan(a, b), n=n,
-                                    **args), bound
+        plan = plan if plan is not None else make_chunked_plan(a, b)
+        return chunked_stage_models(plan, n=n, **args), bound
     return spgemm_stage_models(nnz_a, nnz_b, m, products, nnz_c,
                                itemsize), bound
 

@@ -37,8 +37,8 @@ Phases, each printing one line (or a few):
    each sample) and by the profiler (its own device time), against the
    gather form that ``dia_spgemm(fused=False)`` runs (its plain version;
    fewer samples where it makes thousands of launches) and the byte
-   bound. consph_83k, whose B span passes K3's 4096, is timed on the
-   gather form and on K3 with ``bj`` widened;
+   bound. consph_83k, whose B span passes the reference's 4096, runs K3
+   with ``bj`` widened to its span, as ``dia_spgemm`` does;
 7. the dispatcher's pick on every suite matrix (which it sends to dia);
    the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
@@ -114,11 +114,17 @@ Phases, each printing one line (or a few):
    beside the single-chip ``spadd_planned``; the group torn down; then the
    CLI's ``suite:powerlaw_medium --mesh 1 --schedule halo`` (verified, as
    ``dist/halox1``) and ``--mesh`` one past the cards, which must exit
-   non-zero. No kernel of K1-K3 lies on these paths.
+   non-zero. No kernel of K1-K3 lies on these paths;
+16. the suite harness (``benchmark_spgemm_using_csr_tpu_torch/bench.py``)
+   in process, 3 timed runs a point, on the 12 suite points no earlier
+   phase drives end to end (``BENCH_POINTS``), the rectangular pair and
+   the float64 mini-suite: each point's line (method, numeric median and
+   spread, whole call, peak, roofline shares, launches), each verified
+   against scipy; fails if any point fails.
 
 The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
-launch counts of phases 7-10 and 12 are set to 0 just before each path is
-driven through its entry point and read just after; the kernels line and
+launch counts of phases 7-10, 12 and 16 are set to 0 just before each path
+is driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
 4-6 and the timing runs of phases 7-10 do not count.
 Any failure raises and the exit code is not 0. The line before the last
@@ -166,7 +172,7 @@ DIA_MATRICES = ("poisson2d_64", "poisson2d_256", "banded_16k", "stencil27_32",
                 "mc2depi_524k", "fem_17k", "fem_32k", "pdb_8k", "fem_46k",
                 "consph_83k")
 F64_MATRICES = ("mc2depi_524k", "stencil27_32", "pdb_8k")  # K3 timed in f64
-K3_SPAN = 4096  # K3's contract, the reference's block bj: wider spans raise
+K3_SPAN = 4096  # the reference's block bj; dia_spgemm widens it past this
 DIRECT_BAND, DIRECT_N = 300, 16384  # float64: K3's plan takes the direct mode
 F32_TOL = dict(rtol=1e-4, atol=1e-5)  # the CLI's float32 verify tolerances
 F64_TOL = dict(rtol=1e-12, atol=1e-12)  # float64 against x64 scipy
@@ -489,12 +495,12 @@ def k3_blocks_per_sm(lib, plan, itemsize: int) -> int:
 # ---- K3 --------------------------------------------------------------------
 
 
-def compare_dia(dia_kernels, a, b, what: str) -> float:
+def compare_dia(dia_kernels, a, b, what: str, bj: int = K3_SPAN) -> float:
     """K3 against its plain version: offsets, type and every value bit
     for bit (both sum each plane's terms in one order without FMA).
     Returns the max abs difference (0)."""
-    got = dia_kernels.dia_spgemm_fused(a, b)
-    want = dia_kernels.dia_spgemm_fused_plain(a, b)
+    got = dia_kernels.dia_spgemm_fused(a, b, bj=bj)
+    want = dia_kernels.dia_spgemm_fused_plain(a, b, bj=bj)
     torch.cuda.synchronize()
     if got.offsets != want.offsets or got.dtype != want.dtype:
         raise AssertionError(f"K3 offsets or type differ on {what}")
@@ -575,14 +581,16 @@ def k3_bound(dia_kernels, a, b):
     return (*bound(model), model.bytes_moved, model.flops)
 
 
-def time_k3_once(dia_kernels, a, what: str, flush, gather_reps: int) -> dict:
+def time_k3_once(dia_kernels, a, what: str, flush, gather_reps: int,
+                 bj: int = K3_SPAN) -> dict:
     """K3 on A @ A against its plain version (the gather form that
     ``dia_spgemm(fused=False)`` runs), then timed: batches of 10 calls and
     one call alone (CUDA events, L2 flushed before each sample), the
     kernel's own device time (torch.profiler), and the gather form."""
-    err = compare_dia(dia_kernels, a, a, what)
-    fn = functools.partial(dia_kernels.dia_spgemm_fused, a, a)
-    plain = functools.partial(dia_kernels.dia_spgemm_fused_plain, a, a)
+    err = compare_dia(dia_kernels, a, a, what, bj)
+    fn = functools.partial(dia_kernels.dia_spgemm_fused, a, a, bj=bj)
+    plain = functools.partial(dia_kernels.dia_spgemm_fused_plain, a, a,
+                              bj=bj)
     ms = cuda_ms(fn, flush=flush, batch=10)
     alone_ms = cuda_ms(fn, flush=flush)
     prof_ms = profiler_ms(fn, "dia_spgemm_kernel", flush)
@@ -633,9 +641,9 @@ def plan_text(plan) -> str:
 def time_k3(port, dia_kernels, flush) -> dict:
     """K3 against the gather form on the planes of every suite member the
     dispatcher sends to dia (float32; the main path's three also float64),
-    bit-equal and timed. A B span past K3's 4096 is outside its contract:
-    that member is run with ``bj`` = its span, so its numbers say what
-    widening the contract would give. Returns {name: numbers} (float32)."""
+    bit-equal and timed. A B span past the reference's 4096 is run with
+    ``bj`` widened to the span, as ``dia_spgemm`` runs it. Returns {name:
+    numbers} (float32)."""
     out = {}
     for name in DIA_MATRICES:
         a = port.DIA.from_csr(suite_csr(port, name), device="cuda")
@@ -645,16 +653,9 @@ def time_k3(port, dia_kernels, flush) -> dict:
                 f"terms, span {span})")
         reps = 3 if nd * nd > 1000 else 10
         if span > K3_SPAN:
-            wide = functools.partial(dia_kernels.dia_spgemm_fused, bj=span)
-            ms = cuda_ms(lambda: wide(a, a), flush=flush, batch=10)
-            gather_ms = cuda_ms(
-                lambda: dia_kernels.gather_form(a, a), reps=reps,
-                flush=flush)
-            phase(f"K3 on {what}: span past {K3_SPAN}, the gather form "
-                  f"{gather_ms:.4f} ms on the main path; K3 with bj={span} "
-                  f"would take {ms:.4f} ms in batches of 10")
-            continue
-        out[name] = time_k3_once(dia_kernels, a, what, flush, reps)
+            what += f", bj widened to {span}"
+        out[name] = time_k3_once(dia_kernels, a, what, flush, reps,
+                                 max(K3_SPAN, span))
         if name in F64_MATRICES:
             a64 = port.DIA(a.data.double(), a.offsets, a.shape)
             time_k3_once(dia_kernels, a64, what + " in float64", flush, reps)
@@ -1865,6 +1866,37 @@ def dist_phase(card: str) -> None:
           f"{over.returncode} ({over.stderr.strip().splitlines()[-1]})")
 
 
+# ---- phase 16: the suite harness ------------------------------------------
+
+# the suite points no earlier phase drives end to end, the pair, the f64 suite
+BENCH_POINTS = ("banded_16k", "webbase_1m", "econ_206k", "fem_17k",
+                "fem_32k", "fem_46k", "femirr_17k", "pattern_circuit_64k",
+                "hubrows_32k", "road_1m", "smallworld_400k", "consph_83k",
+                "rect_96k_24k_48k", "er_small_f64", "poisson2d_256_f64",
+                "fem_17k_f64", "dense_rows_2k_f64", "scircuit_f64",
+                "banded_16k_f64")
+BENCH_RUNS = 3
+
+
+def bench_phase(launches) -> None:
+    """Phase 16: the harness's points of ``BENCH_POINTS``, in process; the
+    launches of each point's verified run and whole call join the paths'
+    counts. Fails if any point fails."""
+    from benchmark_spgemm_using_csr_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    harness = bench.Harness(
+        device="cuda", runs=BENCH_RUNS, only=BENCH_POINTS, say=phase,
+        results=os.path.join("_scratch", "bench", "results_torch.jsonl"))
+    harness.run()
+    for row in harness.rows:
+        launches.update(row.get("launches", {}))
+    phase(f"phase 16 headline ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(harness.headline())}")
+    if harness.failed:
+        raise AssertionError(f"harness points failed: {harness.failed}")
+
+
 def kernel_entry(name, source, replaces, launches, numbers) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
@@ -1947,6 +1979,8 @@ def main() -> int:
     cli_ops()
     # 11. the CLI
     cli_run()
+    # 16. the suite harness
+    bench_phase(launches)
 
     print(json.dumps({"kernels": [
         kernel_entry("tile_sort_merge", "tile_sort_merge.cu",

@@ -50,11 +50,21 @@ def test_auto_same_csr_as_reference(name):
 
 
 # suite points at full size (choose_method is host-only numpy): the ESC
-# points, bsr's and dense's, and the block / stencil / hub regimes
+# points, bsr's and dense's, the block / stencil / hub regimes, and every
+# other member the suite harness (bench.py) scores but the three with
+# 400k-1M rows (tests/test_torch_bench_picks.py)
 DISPATCH = ["er_small", "powerlaw_small", "poisson2d_64", "er_medium",
             "powerlaw_medium", "circuit_64k", "dense_rows_2k",
-            "dense_rows_8k", "banded_16k", "stencil27_32", "hubrows_32k"]
-PICKS = {"dense_rows_2k": "bsr", "dense_rows_8k": "dense"}
+            "dense_rows_8k", "banded_16k", "stencil27_32", "hubrows_32k",
+            "poisson2d_256", "econ_206k", "mc2depi_524k", "scircuit_256k",
+            "fem_17k", "fem_32k", "pdb_8k", "femirr_17k",
+            "pattern_circuit_64k", "fem_46k", "consph_83k"]
+PICKS = {"dense_rows_2k": "bsr", "dense_rows_8k": "dense",
+         "poisson2d_256": "dia", "mc2depi_524k": "dia", "fem_17k": "dia",
+         "fem_32k": "dia", "pdb_8k": "dia", "fem_46k": "dia",
+         "consph_83k": "dia", "econ_206k": "grouped",
+         "scircuit_256k": "grouped", "femirr_17k": "grouped",
+         "pattern_circuit_64k": "grouped"}
 
 
 @pytest.mark.parametrize("name", DISPATCH)
@@ -103,6 +113,56 @@ def test_auto_builds_the_tilepack_plan_once(monkeypatch):
     np.testing.assert_array_equal(c.colidx.numpy()[:nnz], want.indices)
     np.testing.assert_allclose(c.vals.numpy()[:nnz], want.data,
                                rtol=1e-4, atol=1e-5)
+
+
+def test_auto_builds_the_grouped_plan_once(monkeypatch):
+    from benchmark_spgemm_using_csr_tpu_torch.ops import grouped
+
+    built = []
+    real = grouped.make_grouped_plan
+    monkeypatch.setattr(grouped, "make_grouped_plan",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    sa = jgen.SUITE["femirr_17k"]()  # routed to grouped
+    ta = T.CSR.from_scipy(sa, device="cpu")
+    plans = {}
+    assert T.api.resolve_method(ta, ta, plans) == "grouped"
+    assert len(built) == 1 and plans["grouped"] is not None
+    built.clear()
+    c = T.spgemm(ta, ta, method="auto")
+    assert len(built) == 1
+    want = (sa @ sa).tocsr()
+    want.sort_indices()
+    np.testing.assert_array_equal(c.rowptr.numpy(), want.indptr)
+
+
+@pytest.mark.parametrize("pick,planner", [("tilepack", "make_tilepack_plan"),
+                                          ("grouped", "make_grouped_plan")])
+def test_auto_runs_chunked_where_the_plan_refuses(monkeypatch, pick, planner):
+    """resolve_method is what spgemm(auto) runs: the pick, or chunked where
+    tilepack's or grouped's plan refuses the operands; the forced method
+    raises there."""
+    import importlib
+
+    from benchmark_spgemm_using_csr_tpu_torch.ops import chunked
+
+    module = importlib.import_module(
+        f"benchmark_spgemm_using_csr_tpu_torch.ops.{pick}")
+    monkeypatch.setattr(tdispatch, "choose_method", lambda a, b, *_: pick)
+    monkeypatch.setattr(module, planner, lambda *a, **k: None)
+    ran = []
+    real = chunked.spgemm_chunked
+    monkeypatch.setattr(chunked, "spgemm_chunked",
+                        lambda *a: ran.append(1) or real(*a))
+    sa = jgen.SUITE["er_small"]()
+    ta = T.CSR.from_scipy(sa, device="cpu")
+    assert T.api.resolve_method(ta, ta) == "chunked"
+    c = T.spgemm(ta, ta, method="auto")
+    assert ran == [1]
+    want = (sa @ sa).tocsr()
+    want.sort_indices()
+    np.testing.assert_array_equal(c.rowptr.numpy(), want.indptr)
+    with pytest.raises(ValueError, match="outside"):
+        T.spgemm(ta, ta, method=pick)
 
 
 def test_choose_method_rectangular():

@@ -202,6 +202,26 @@ def test_auto_gate_keeps_the_gather_form_on_cpu():
     assert torch.equal(c.data, want.data)
 
 
+def test_span_past_4096_widens_k3s_block():
+    """A B span past the reference's 4096: K3 under the reference contract
+    raises, dia_spgemm's K3 route widens bj to the span (CPU planes: K3's
+    plain version) and equals the gather form bit for bit; fused=None on
+    CPU planes keeps the gather form."""
+    rng = np.random.default_rng(5)
+    offsets = (-4600, -1, 0, 1, 990)  # span 5590, consph_83k's
+    a = T.DIA.from_numpy(rng.standard_normal((5, 12000)).astype(np.float32),
+                         offsets, (12000, 12000), device="cpu")
+    with pytest.raises(ValueError, match="span"):
+        dia_kernels.dia_spgemm_fused(a, a)
+    want = dia_kernels.gather_form(a, a)
+    before = dia_kernels.dia_spgemm_fused.launches
+    for fused in (True, None):
+        got = tdia.dia_spgemm(a, a, fused=fused)
+        assert got.offsets == want.offsets
+        assert torch.equal(got.data, want.data)
+    assert dia_kernels.dia_spgemm_fused.launches == before
+
+
 def test_spmv_matches_reference():
     import jax.numpy as jnp
 
@@ -350,6 +370,22 @@ def test_offsets_viable_and_estimate_match_reference(name):
     np.testing.assert_array_equal(tdia.dia_offsets_of(ta),
                                   jdia.dia_offsets_of(ja))
     assert tdispatch.estimate_dia_s(ta) == jdispatch.estimate_dia_s(ja)
+
+
+@pytest.mark.parametrize("name", ["poisson2d_64", "banded_16k", "er_small",
+                                  "stencil27_32"])
+def test_dia_viable_matches_reference(name):
+    ja = J.CSR.from_scipy(jgen.SUITE[name]())
+    assert T.dia_viable(bridge(ja)) == jdia.dia_viable(ja)
+
+
+def test_root_exports_match_reference():
+    from benchmark_spgemm_using_csr_tpu_torch.ops import fused as tfused
+
+    for name in ("dia_spmv", "dia_viable", "make_fused_plan"):
+        assert name in J.__all__ and name in T.__all__
+    assert T.dia_spmv is tdia.dia_spmv and T.dia_viable is tdia.dia_viable
+    assert T.make_fused_plan is tfused.make_plan
 
 
 def test_dia_estimate_refuses_iid_random():

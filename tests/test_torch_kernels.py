@@ -385,6 +385,23 @@ def test_k3_cuda_auto_gate_launches_k3_on_27_diagonals():
 
 
 @pytest.mark.cuda
+def test_k3_cuda_span_past_4096_launches_k3():
+    """dia_spgemm(fused=None) takes K3 with bj widened for a B span past
+    the reference's 4096 (consph_83k's 5590), bit-equal to the gather
+    form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = dia_operand(83334, (-4600, -1, 0, 1, 990), 11)
+    before = dia_kernels.dia_spgemm_fused.launches
+    c = dia.dia_spgemm(a, a)
+    torch.cuda.synchronize()
+    assert dia_kernels.dia_spgemm_fused.launches == before + 1
+    want = dia_kernels.gather_form(a, a)
+    assert c.offsets == want.offsets
+    assert torch.equal(c.data, want.data)
+
+
+@pytest.mark.cuda
 def test_k3_cuda_empty_operand_and_span_guard():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
