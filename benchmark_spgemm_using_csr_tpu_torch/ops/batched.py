@@ -20,11 +20,15 @@ bounded by the largest block's working set.
   next block starts.
 - **as_scipy** (C larger than device memory): values fetched once after
   all blocks ran, structure from the host plan.
+
+C keeps the reference's int32 CSR: a product whose nnz(C) passes 2^31 - 1
+is refused by the plan (its row pointer would wrap).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 
 import numpy as np
 import torch
@@ -35,6 +39,20 @@ from .dense import csr_to_dense, ieee_fp32
 from .symbolic import total_products
 
 log = logging.getLogger(__name__)
+
+# the most entries an int32 row pointer can count
+INT32_MAX = 2**31 - 1
+
+
+def row_products(a_sp, b_rowptr) -> np.ndarray:
+    """Each row's count of intermediate products of A @ B (int64), from
+    A's host structure and B's row pointer."""
+    b_len = np.diff(b_rowptr).astype(np.int64)
+    out = np.zeros(a_sp.shape[0], np.int64)
+    if a_sp.nnz:
+        cs = np.concatenate([[0], np.cumsum(b_len[a_sp.indices])])
+        out = cs[a_sp.indptr[1:]] - cs[a_sp.indptr[:-1]]
+    return out
 
 
 def plan_row_batches(
@@ -87,6 +105,13 @@ class BatchedPlan:
     grouped_scheds: tuple = ()
     # chunked method: one plan for every block
     chunked_plan: object = None
+    # the grouped regime rejected a block and the blocks run chunked
+    fell_back: bool = False
+    # make_batched_plan's host seconds by stage: 'pick' (row blocks, the
+    # method's pick, the block slices), 'patterns' (C's structure),
+    # 'upload' (the plan's device tensors), 'schedules' (the method's
+    # per-block plans)
+    stage_s: dict = dataclasses.field(default_factory=dict)
 
 
 def _block_slices(a_sp, blocks, rows_cap, nnz_cap):
@@ -117,8 +142,15 @@ def make_batched_plan(
     dense_block_bytes: int = 128 << 20,
     method: str | None = None,
 ) -> BatchedPlan:
-    """Host stage 2 of the out-of-core path (plan once, run many)."""
+    """Host stage 2 of the out-of-core path (plan once, run many). Raises
+    ValueError when nnz(C) passes INT32_MAX."""
     import scipy.sparse as sp
+
+    marks, stage_s = [time.perf_counter()], {}
+
+    def lap(stage):  # the host seconds since the last stage ended
+        marks.append(time.perf_counter())
+        stage_s[stage] = marks[-1] - marks[-2]
 
     m, n = a.m, b.n
     dev = a.device
@@ -129,13 +161,7 @@ def make_batched_plan(
         shape=(m, a.n),
     )
     b_rowptr = host_view(b.rowptr)
-    b_len = np.diff(b_rowptr).astype(np.int64)
-    nnz_ct = np.zeros(m, np.int64)
-    if a_sp.nnz:
-        cs = np.concatenate([[0], np.cumsum(b_len[a_sp.indices])])
-        nnz_ct = cs[a_sp.indptr[1:]] - cs[a_sp.indptr[:-1]]
-
-    blocks = plan_row_batches(nnz_ct, stream_budget)
+    blocks = plan_row_batches(row_products(a_sp, b_rowptr), stream_budget)
 
     # method: the in-core cost models on the largest block (blocks are
     # product-balanced, so it is representative)
@@ -167,31 +193,41 @@ def make_batched_plan(
         a_sp, blocks, rows_cap, nnz_cap
     )
 
+    lap("pick")
     # exact per-block C pattern (assembly offsets + output structure)
     pat_a = sp.csr_matrix(
-        (np.ones(a_sp.nnz, np.float64), a_sp.indices, a_sp.indptr),
+        (np.ones(a_sp.nnz, np.bool_), a_sp.indices, a_sp.indptr),
         shape=a_sp.shape,
     )
     b_ci = host_view(b.colidx)[: int(b_rowptr[-1])]
     pat_b = sp.csr_matrix(
-        (np.ones(len(b_ci), np.float64), b_ci, b_rowptr[: b.m + 1]),
+        (np.ones(len(b_ci), np.bool_), b_ci, b_rowptr[: b.m + 1]),
         shape=(b.m, n),
     )
-    pats = []
+    pats, nnz_c = [], 0
     for lo, hi in blocks:
-        pc = (pat_a[lo:hi] @ pat_b).tocsr()
-        pc.sort_indices()
-        pats.append(pc)
-    nnz_c_blk = tuple(int(p.nnz) for p in pats)
-    nnz_c = int(sum(nnz_c_blk))
+        indptr, indices = _block_pattern(pat_a, pat_b, lo, hi)
+        nnz_c += int(indptr[-1])
+        if nnz_c > INT32_MAX:
+            raise ValueError(
+                f"nnz(C) reaches {nnz_c:,} by row {hi} of {m}, past the "
+                f"int32 CSR's 2^31 - 1 = {INT32_MAX:,}: C's row pointer "
+                "would wrap")
+        pats.append((indptr, indices))
+    nnz_c_blk = tuple(int(ip[-1]) for ip, _ in pats)
     cap_c = pad_bucket(max(nnz_c, 1))
     out_rowptr = np.zeros(m + 1, np.int64)
     out_colidx = np.zeros(cap_c, np.int32)
     off = 0
-    for (lo, hi), pc in zip(blocks, pats):
-        out_rowptr[lo + 1:hi + 1] = off + pc.indptr[1:]
-        out_colidx[off:off + pc.nnz] = pc.indices
-        off += pc.nnz
+    for i, (lo, hi) in enumerate(blocks):
+        indptr, indices = pats[i]
+        out_rowptr[lo + 1:hi + 1] = off + indptr[1:]
+        out_colidx[off:off + len(indices)] = indices
+        off += len(indices)
+        if method != "dense":  # only the dense extraction reads it again
+            pats[i] = None
+
+    lap("patterns")
 
     def on_dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -219,6 +255,7 @@ def make_batched_plan(
         blk_rows_e=tuple(on_dev(r) for r in rows_es),
     )
 
+    lap("upload")
     if method == "dense":
         # per-block extraction: 'full' (C block structurally dense),
         # 'shift' (near-dense: kept/disp and a stable left-compaction),
@@ -226,11 +263,11 @@ def make_batched_plan(
         cap_c_u = pad_bucket(max(max(nnz_c_blk), 1))
         slots = rows_cap * n
         extract = []
-        for (lo, hi), pc in zip(blocks, pats):
+        for (lo, hi), (indptr, indices) in zip(blocks, pats):
             rr = np.repeat(np.arange(hi - lo, dtype=np.int64),
-                           np.diff(pc.indptr))
-            flat = rr * n + pc.indices.astype(np.int64)
-            holes = slots - pc.nnz
+                           np.diff(indptr))
+            flat = rr * n + indices.astype(np.int64)
+            holes = slots - len(indices)
             if holes == 0:
                 extract.append(("full", None))
             elif holes < slots // 8:
@@ -240,7 +277,7 @@ def make_batched_plan(
                 extract.append(("shift", (on_host(kept), on_host(disp))))
             else:
                 f = np.full(cap_c_u, slots, np.int64)  # pad -> guard slot
-                f[: pc.nnz] = flat
+                f[: len(indices)] = flat
                 extract.append(("gather", on_host(f)))
         plan.flat_c = tuple(extract)
         plan.cap_c_u = cap_c_u
@@ -248,11 +285,12 @@ def make_batched_plan(
         plan.grouped_scheds = _grouped_block_scheds(plan, a, b, rowptrs,
                                                     colidxs)
         if plan.grouped_scheds is None:
+            # the blocks and C's structure do not depend on the method
+            # (only dense cuts its own blocks): run them chunked
             log.info("grouped regime rejected a block; falling back chunked")
-            return make_batched_plan(
-                a, b, stream_budget=stream_budget,
-                dense_block_bytes=dense_block_bytes, method="chunked",
-            )
+            method = plan.method = "chunked"
+            plan.grouped_scheds = ()
+            plan.fell_back = True
     if method == "chunked":
         from ..parallel.dist import make_dist_local_plan
 
@@ -260,32 +298,43 @@ def make_batched_plan(
             a, b, n_shards=len(blocks),
             bounds=np.asarray([lo for lo, _ in blocks] + [m], np.int64),
         )
+    lap("schedules")
+    plan.stage_s = stage_s
     return plan
+
+
+def _block_pattern(pat_a, pat_b, lo: int, hi: int):
+    """Rows [lo, hi) of C's pattern as (indptr, indices), columns sorted.
+    The patterns are boolean: scipy sums them by logical or, so no count
+    can wrap or cancel to 0, at a byte an entry."""
+    pc = (pat_a[lo:hi] @ pat_b).tocsr()
+    pc.sort_indices()
+    return pc.indptr, pc.indices
 
 
 def _grouped_block_scheds(plan, a, b, rowptrs, colidxs):
     """Per-block grouped schedules under one set of statics: plan every
-    block, take the max of each capacity, rebuild every block under it."""
+    block, take the max of each capacity, rebuild every block under it.
+    Each block's nnz(C) is the plan's own count (its pattern)."""
     from .chunked import pad_gentle
     from .grouped import make_grouped_plan
 
     subs = []
     for rp, ci in zip(rowptrs, colidxs):
-        # structure only; the values must be nonzero, since the plan's
-        # exact nnz(C) is a pattern product of the values
+        # structure only: the schedules read no value
         va = np.ones(plan.nnz_cap, host_view(a.vals).dtype)
         subs.append(CSR.from_numpy(rp, ci, va, (plan.rows_cap, a.n),
                                    device=a.device))
-    base = make_grouped_plan(subs[0], b)
+    base = make_grouped_plan(subs[0], b, nnz_c=plan.nnz_c_blk[0])
     if base is None:
         return None
     bp = base.plan
     p1 = [
         make_grouped_plan(
             s, b, al=bp.al, target_slots=bp.cs * bp.lanes,
-            force_scatter_set=bp.scatter_set,
+            force_scatter_set=bp.scatter_set, nnz_c=nnz_c,
         )
-        for s in subs
+        for s, nnz_c in zip(subs, plan.nnz_c_blk)
     ]
     if any(p is None for p in p1):
         return None

@@ -115,6 +115,7 @@ def make_grouped_plan(
     a: CSR, b: CSR, al: int | None = None, target_slots: int | None = None,
     fixed: GroupedPlan | None = None,
     force_scatter_set: bool | None = None,
+    nnz_c: int | None = None,
 ) -> GroupedSchedule | None:
     """Host stage-2: chunk quantization -> greedy row->group packing.
 
@@ -129,6 +130,8 @@ def make_grouped_plan(
     (mode, cs, g_cap, capacities), so that one plan serves several row
     blocks (ops/batched); the statics must cover this matrix (checked).
     force_scatter_set: override the scatter-SET choice.
+    nnz_c: the exact nnz(C), where the caller has counted it already
+    (ops/batched); None counts it here by a host structural product.
     """
     m, n = a.m, b.n
     if m == 0 or n == 0:
@@ -292,7 +295,7 @@ def make_grouped_plan(
         plan = fixed
     else:
         plan = _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap,
-                         cbits, lbits, max_run, scatter_set)
+                         cbits, lbits, max_run, scatter_set, nnz_c)
     slot0 = (tile_of * cs + base_chunk).astype(np.int32)
     dev = a.device
     return GroupedSchedule(
@@ -305,12 +308,13 @@ def make_grouped_plan(
 
 
 def _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap, cbits, lbits,
-              max_run, scatter_set) -> GroupedPlan:
+              max_run, scatter_set, nnz_c=None) -> GroupedPlan:
     """The plan's capacities that need the exact nnz(C) (a host structural
-    product) and the aligned table's size."""
-    pat_a = a.to_scipy().astype(bool)
-    pat_b = pat_a if b is a else b.to_scipy().astype(bool)
-    nnz_c = int((pat_a @ pat_b).nnz)
+    product, unless given) and the aligned table's size."""
+    if nnz_c is None:
+        pat_a = a.to_scipy().astype(bool)
+        pat_b = pat_a if b is a else b.to_scipy().astype(bool)
+        nnz_c = int((pat_a @ pat_b).nnz)
     abpad_cap = 0
     if al:
         abpad = int((-(-b_len // al) * al).sum())

@@ -7,6 +7,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..sparse.csr import CSR
+
 # the CLI's verify tolerances by value type (the reference CLI's); a
 # bfloat16 product is held against the float32 golden of the rounded inputs
 TOLERANCES = {
@@ -133,3 +135,16 @@ def assert_csr_equal(got, want, rtol=1e-5, atol=1e-6,
     np.testing.assert_allclose(v_got, v_want, rtol=rtol, atol=atol,
                                err_msg="value mismatch")
     return int(one_side.size)
+
+
+def random_csr(m, n, density=0.01, dtype=np.float32, seed=0, *,
+               device) -> CSR:
+    """A uniformly random (m, n) CSR with standard-normal values, the
+    reference's ``random_csr`` on ``device`` (a required keyword, as in
+    ``CSR.from_scipy``)."""
+    rng = np.random.default_rng(seed)
+    mat = sp.random(
+        m, n, density=density, format="csr", dtype=np.float64, random_state=rng
+    )
+    mat.data = rng.standard_normal(mat.nnz)
+    return CSR.from_scipy(mat.astype(dtype), device=device)

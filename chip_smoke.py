@@ -120,9 +120,23 @@ Phases, each printing one line (or a few):
    phase drives end to end (``BENCH_POINTS``), the rectangular pair and
    the float64 mini-suite: each point's line (method, numeric median and
    spread, whole call, peak, roofline shares, launches), each verified
-   against scipy; fails if any point fails.
+   against scipy; fails if any point fails;
+17. the large-scale demo (``scripts/demo_large``, its entry point in a
+   subprocess) at its default size, the reference's record: C = A·A on
+   the 77M-nnz scale-free matrix out of core (1.39B products, nnz(C)
+   1.39B, C returned as a host scipy CSR), its lines (the plan's method
+   and blocks, plan host time, first call, second call's device time,
+   device peak, host peak RSS, the counts beside the record's) and both
+   checks of C, the 512 sampled rows against scipy and the whole C
+   through a vector; fails if the run exits non-zero;
+18. the acceptance driver (``scripts/acceptance``, its entry point in a
+   subprocess) at its full sizes on the card: the five BASELINE configs,
+   config 5 on 8 gloo ranks on the CPU and over NCCL at world size
+   ``torch.cuda.device_count()``, each against scipy; fails if any config
+   fails.
 
-The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
+No kernel of K1-K3 lies on the paths of phases 17 and 18 (the
+out-of-core blocks run chunked or grouped). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
 launch counts of phases 7-10, 12 and 16 are set to 0 just before each path
 is driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
@@ -1897,6 +1911,48 @@ def bench_phase(launches) -> None:
         raise AssertionError(f"harness points failed: {harness.failed}")
 
 
+# ---- phases 17-18: the reference's scripts, through their entry points ----
+
+
+def entry_point(module: str, args, timeout_s: float) -> list[str]:
+    """Run ``python -m <PKG>.scripts.<module> args`` in its own session,
+    print its output a line at a time, and fail unless it exits 0; on its
+    deadline the whole session (and the ranks it spawned) is killed."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.scripts.{module}", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{module} passed its {timeout_s:.0f} s deadline")
+    lines = [x for x in out.splitlines() if "socket.cpp" not in x]
+    for line in lines:
+        phase(f"  {line}")
+    phase(f"{module} {' '.join(args)}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}")
+    return lines
+
+
+def scripts_phase() -> None:
+    """Phases 17 and 18 (module docstring)."""
+    results = os.path.join("_scratch", "scripts", "results_torch.jsonl")
+    lines = entry_point("demo_large", ["--results", results], 900)
+    if not any("check (a)" in x and "PASS" in x for x in lines) or not any(
+            "check (b)" in x and "PASS" in x for x in lines):
+        raise AssertionError("demo_large did not pass both checks")
+    lines = entry_point("acceptance", ["--results", results], 600)
+    if "ACCEPTANCE: ALL PASS" not in lines[-1]:
+        raise AssertionError("acceptance did not pass every config")
+
+
 def kernel_entry(name, source, replaces, launches, numbers) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
@@ -1981,6 +2037,8 @@ def main() -> int:
     cli_run()
     # 16. the suite harness
     bench_phase(launches)
+    # 17-18. the large-scale demo and the acceptance driver
+    scripts_phase()
 
     print(json.dumps({"kernels": [
         kernel_entry("tile_sort_merge", "tile_sort_merge.cu",

@@ -92,6 +92,17 @@ def test_batched_plan_equals_reference(name, small_dense_blocks):
         np.testing.assert_array_equal(t_rp.numpy(), np.asarray(j_rp))
     if tp.method == "dense":
         assert [m for m, _ in tp.flat_c] == [m for m, _ in jp.flat_c]
+    if tp.method == "grouped":
+        assert len(tp.grouped_scheds) == len(jp.grouped_scheds)
+        for ts, js in zip(tp.grouped_scheds, jp.grouped_scheds):
+            for field in ("k", "al", "cs", "g_cap", "abpad_cap", "out_cap",
+                          "nnz_c", "cbits", "lbits", "max_run",
+                          "scatter_set"):
+                assert (getattr(ts.plan, field)
+                        == getattr(js.plan, field)), field
+            for field in ("slot0", "first_rank", "sorted_off", "fill_end"):
+                np.testing.assert_array_equal(
+                    getattr(ts, field).numpy(), np.asarray(getattr(js, field)))
     if tp.method == "chunked":
         for field in ("k", "chunks_cap", "out_cap", "max_run", "wide_min",
                       "wchunks_cap", "bpad_cap", "scatter_set", "al",
