@@ -30,10 +30,12 @@ their GFlops, GFlops = flops / t / 1e9 with flops = 2 * nnzCt
 (``api.spgemm_flops``) and t the median time of the numeric phase: the
 method's host plan (for dia: the DIA planes; for bsr: the BSR operands)
 is built before, outside the timed window, and each run is timed by CUDA
-events (``utils/timing.bench``, 2 warmups, 5 runs); ``spread`` is
-(max - min) / median. Beside it: the whole call ``api.spgemm(a, b,
-method="auto")`` once on the host clock, host planning and dispatch
-included, and the method it ran; the peak device memory above the
+events (``utils/timing.bench``, 2 warmups, 5 runs; on the card a
+chunked, grouped or tilepack phase replays its CUDA graph, ``ops/graphs``);
+``spread`` is (max - min) / median. Beside it: the whole call
+``api.spgemm(a, b, method="auto")`` once on the host clock, host planning
+and dispatch included, with the graphs dropped first so that it runs
+eager, as a one-shot caller's call does, and the method it ran; the peak device memory above the
 point's start; the ``_bound`` and plan-aware ``_total`` roofline shares
 of the numeric median (``utils/roofline``), None off the card.
 ``vs_baseline`` is ``value`` against 1.0 GFlops, as the reference's.
@@ -81,7 +83,7 @@ import numpy as np
 import torch
 
 from . import api
-from .ops import dia_kernels, dispatch, kernels
+from .ops import dia_kernels, dispatch, graphs, kernels
 from .sparse.csr import BSR, CSR
 from .sparse.dia import DIA
 from .utils import generators
@@ -329,6 +331,9 @@ def spgemm_point(name, a_sp, b_sp=None, *, device, runs=RUNS, method=None,
     }
     if whole:
         row["auto_method"] = api.resolve_method(a, b)
+        # the numeric calls above captured this plan's graph: drop it, so
+        # the whole call runs eager, as a one-shot caller's does
+        graphs.clear()
         sync(device)
         t0 = time.perf_counter()
         c, got = counted(lambda: api.spgemm(a, b, method="auto"), device)

@@ -640,7 +640,16 @@ def merge_products(row, col, val, m: int, n: int, out_cap: int,
 
 
 def spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:
-    """C = A @ B through the chunked sort-based merge (module docstring)."""
+    """C = A @ B through the chunked sort-based merge (module docstring);
+    on the card one CUDA graph per plan from the second call
+    (``ops/graphs``)."""
+    from . import graphs
+
+    return graphs.run(_spgemm_chunked, plan, a, b)
+
+
+def _spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:
+    """The eager body of ``spgemm_chunked``: no value read on the host."""
     m, n = a.m, b.n
     if plan.al:
         row, col, val = _expand_aligned(

@@ -337,8 +337,17 @@ def _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap, cbits, lbits,
 
 
 def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
-    """C = A @ B via grouped per-row sorts (module docstring)."""
-    plan = sched.plan
+    """C = A @ B via grouped per-row sorts (module docstring); on the card
+    one CUDA graph per plan from the second call (``ops/graphs``)."""
+    from . import graphs
+
+    return graphs.run(_spgemm_grouped, sched.plan, a, b, sched.slot0,
+                      sched.first_rank, sched.sorted_off, sched.fill_end)
+
+
+def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
+                    plan: GroupedPlan) -> CSR:
+    """The eager body of ``spgemm_grouped``: no value read on the host."""
     m, n = a.m, b.n
     dev = a.device
     al, lanes = plan.al, plan.lanes
@@ -375,7 +384,7 @@ def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
 
     # first slot per entry: fs = starts + (slot0[row] - row_chunk_start),
     # the bracket spread to entries by a row-boundary delta scatter
-    g_row = sched.slot0.long() - row_chunk_start[:-1]
+    g_row = slot0.long() - row_chunk_start[:-1]
     d_g = g_row - torch.cat([g_row.new_zeros(1), g_row[:-1]])
     spread = _scatter(a.capacity, arp[:-1], d_g, accumulate=True)
     fs = starts + torch.cumsum(spread, 0)
@@ -389,7 +398,7 @@ def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
     d_pb = q_posb - torch.cat([q_posb.new_zeros(1), q_posb[:-1]])
     acc = _scatter(S, fs, d_pb, accumulate=not plan.scatter_set)
     g_bases = torch.arange(1, plan.g_cap, dtype=torch.int64, device=dev) * plan.cs
-    fill_end = sched.fill_end.long()
+    fill_end = fill_end.long()
     acc = acc + _scatter(
         S, torch.cat([g_bases, fill_end]),
         torch.cat([torch.full_like(g_bases, BIG),
@@ -423,11 +432,11 @@ def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
     # ---- group-local packed keys ----------------------------------------
     # nonempty-row rank per slot minus the group's first rank = local row
     hits_r = _scatter(
-        S + 1, torch.where(row_chunks > 0, sched.slot0.long(), S),
+        S + 1, torch.where(row_chunks > 0, slot0.long(), S),
         _ones(row_chunks), accumulate=True,
     )
     rank = torch.cumsum(hits_r[:S], 0)  # 1-based
-    lr = rank - 1 - sched.first_rank.long().repeat_interleave(plan.cs)
+    lr = rank - 1 - first_rank.long().repeat_interleave(plan.cs)
     key = torch.where(lv, (lr << plan.cbits)[:, None] | col, SENTINEL_U32)
     valm = torch.where(lv, val, 0)
 
@@ -441,7 +450,7 @@ def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
         max_run=plan.max_run,
     )
     exc = torch.cat([tails_cum.new_zeros(1), tails_cum])
-    rowptr = exc[torch.clamp(sched.sorted_off.long(), 0, exc.shape[0] - 1)]
+    rowptr = exc[torch.clamp(sorted_off.long(), 0, exc.shape[0] - 1)]
     oc = torch.arange(plan.out_cap, device=dev)
     keep = oc < rowptr[-1]
     out_col = torch.where(keep, keyc & ((1 << plan.cbits) - 1), 0)

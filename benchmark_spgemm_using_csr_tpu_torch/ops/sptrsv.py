@@ -16,8 +16,10 @@ storage of an ILU0 factor solves directly (L = unit diagonal + strictly
 lower part, U = upper part with the diagonal).
 
 What differs from the reference package's ``ops/sptrsv.py``: its
-``lax.scan`` becomes the Python loop, and its packed bitcast (colidx, vals)
-table, a TPU gather-descriptor device, becomes two direct gathers.
+``lax.scan`` becomes the Python loop, which the card runs as one CUDA
+graph per plan from the second solve on (``ops/graphs``), and its packed
+bitcast (colidx, vals) table, a TPU gather-descriptor device, becomes two
+direct gathers.
 """
 from __future__ import annotations
 
@@ -150,7 +152,9 @@ def sptrsv_planned(a: CSR, b, sched: TrsvSchedule):
     """Solve T x = b with a prebuilt schedule (values may differ from the
     plan-time matrix as long as the structure and the diagonal positions
     are the same, e.g. successive ILU0 factors)."""
-    return _solve(a, b, sched.stream, sched.diag_pos, sched.plan)
+    from . import graphs
+
+    return graphs.run(_solve, sched.plan, a, b, sched.stream, sched.diag_pos)
 
 
 def sptrsv(a: CSR, b, lower: bool = True, unit_diag: bool = False):

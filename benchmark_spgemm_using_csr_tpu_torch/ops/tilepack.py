@@ -277,10 +277,20 @@ def pack_tiles(
 
 
 def spgemm_tilepack(a: CSR, b: CSR, sched: TilePackSchedule) -> CSR:
-    """C = A @ B via packed tiles (module docstring)."""
+    """C = A @ B via packed tiles (module docstring); on the card one CUDA
+    graph per plan, K1 inside it, from the second call (``ops/graphs``)."""
+    from . import graphs
+
+    return graphs.run(_spgemm_tilepack, sched.plan, a, b, sched.slot0,
+                      sched.q, sched.first_rank)
+
+
+def _spgemm_tilepack(a: CSR, b: CSR, slot0, q, first_rank,
+                     plan: TilePackPlan) -> CSR:
+    """The eager body of ``spgemm_tilepack``: no value read on the host."""
     from .kernels import tile_sort_merge
 
-    plan = sched.plan
+    sched = TilePackSchedule(plan, slot0, q, first_rank)
     m, n = a.m, b.n
     dev = a.device
     W = plan.w

@@ -50,7 +50,7 @@ import scipy.sparse as sp
 import torch
 
 from ..bench import DEFAULT_RESULTS, card_text, sync
-from ..ops import batched
+from ..ops import batched, graphs
 from ..sparse.csr import CSR
 from ..utils import generators
 from ..utils.oracle import TOLERANCES, assert_csr_equal
@@ -200,6 +200,12 @@ def run(nnz: float = DEFAULT_NNZ, budget: float = 32e6,
     if peak1 is not None:
         say(f"  device peak above the start (first call): "
             f"{gib(peak1):.3f} GiB")
+    graph_info = graphs.info()
+    pool = graph_info["pool_bytes"]
+    if cuda:
+        say(f"  graphs: {graph_info['captures']} capture(s) for "
+            f"{len(plan.blocks)} blocks (ops/graphs); pool {gib(pool):.3f} "
+            "GiB, allocated in the capture, so inside the first call's peak")
     say(f"  host peak RSS after the first call: {gib(rss1):.2f} GiB")
 
     # second call: the plan cached, C left on the device
@@ -222,7 +228,9 @@ def run(nnz: float = DEFAULT_NNZ, budget: float = 32e6,
     say(f"C = A@A (second call, plan cached, C on the device): wall "
         f"{wall2:.3f} s = {flops / wall2 / 1e9:.4f} GFlops; device "
         + (f"{dev2_s:.3f} s = {flops / dev2_s / 1e9:.4f} GFlops (CUDA "
-           f"events); device peak above the start {gib(peak2):.3f} GiB"
+           f"events); device peak above the start {gib(peak2):.3f} GiB, "
+           f"beside the graph pool's {gib(pool):.3f} GiB, which a replay "
+           "does not allocate"
            if cuda else "time not measured (no card)"))
     if nnz_c2 != nnz_c:
         raise AssertionError(f"the second call's nnz_c {nnz_c2} != {nnz_c}")
@@ -259,6 +267,7 @@ def run(nnz: float = DEFAULT_NNZ, budget: float = 32e6,
         "gflops2": flops / dev2_s / 1e9 if dev2_s else None,
         "gflops2_wall": flops / wall2 / 1e9,
         "device_peak_bytes": peak1, "device_peak2_bytes": peak2,
+        "graph_captures": graph_info["captures"], "graph_pool_bytes": pool,
         "host_rss_first_call_bytes": rss1, "host_rss_bytes": rss,
         "check_s": check_s, "check_sample": check_sample,
         "verified_sampled": ok_a, "verified_vector": ok_b,

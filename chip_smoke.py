@@ -91,7 +91,8 @@ Phases, each printing one line (or a few):
    reference's, each verified at rtol 2e-2 / atol 1e-2 against scipy's
    float32 product of the rounded values, numeric median, whole call and
    peak memory;
-13. one ``utils/profiling.trace`` of ``spgemm(auto)`` on er_medium and on
+13. one ``utils/profiling.trace`` of ``spgemm(auto)`` (after two warm
+   calls: er_medium's tilepack replays its graph) on er_medium and on
    mc2depi_524k (Chrome traces under ``_scratch/traces/``): device
    time by kernel name and the device's busy share of the window;
    ``tile_sort_merge`` and ``dia_spgemm`` must show device time;
@@ -134,6 +135,25 @@ Phases, each printing one line (or a few):
    config 5 on 8 gloo ranks on the CPU and over NCCL at world size
    ``torch.cuda.device_count()``, each against scipy; fails if any config
    fails.
+
+19. the planned numeric phases as CUDA graphs (``ops/graphs``), run
+   before phase 16: er_medium (tilepack, K1), powerlaw_medium (chunked),
+   circuit_64k and scircuit_256k (grouped), er_small in float64 (grouped)
+   and mc2depi_524k's lower and upper SpTRSV, at full size. Each: the
+   eager body run once under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host read raises) and once more (do two eager calls agree bit for
+   bit?), its device busy share by the profiler, the eager median and the
+   public call's median (CUDA events, median of 5 after 2 warm-ups, as
+   ``bench.py`` times them: warm-up 1 eager, warm-up 2 captures) with
+   their spreads and peaks, the capture time, graph count and pool, the
+   launches one replay adds, whether the replay is bit-equal to the eager
+   call (it must be where two eager calls are), the result against scipy,
+   and what the profiler sees of a replay. Then: two calls in a row return
+   distinct storage; new values on the same structure replay the same
+   graph and give the new product; the out-of-core grouped path on
+   circuit_64k in 3+ blocks makes one capture. Phase 10 (its coarse LU
+   takes ~57 GiB) runs beside the graphs phases 7-9 left cached, and
+   first prints them and their shared pool.
 
 No kernel of K1-K3 lies on the paths of phases 17 and 18 (the
 out-of-core blocks run chunked or grouped). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
@@ -957,7 +977,9 @@ def profile_paths(port, logdir: str) -> None:
     """One ``utils/profiling.trace`` of ``spgemm(A, A, method="auto")`` (a
     warm call) on each PROFILED matrix: device time by kernel name and the
     device's busy share of the window (kernel and copy time over the host
-    clock); the named kernel must show device time."""
+    clock); the named kernel must show device time. Two warm calls come
+    first, so a planned pick's traced call replays its graph rather than
+    capturing it (``ops/graphs``)."""
     from benchmark_spgemm_using_csr_tpu_torch.utils.profiling import (
         device_time_by_kernel,
         trace,
@@ -965,6 +987,7 @@ def profile_paths(port, logdir: str) -> None:
 
     for name, kernel in PROFILED.items():
         a = suite_csr(port, name)
+        port.spgemm(a, a, method="auto")
         port.spgemm(a, a, method="auto")
         for attempt in range(1, 4):  # the profiler now and then drops records
             with trace(os.path.join(logdir, name)) as prof:
@@ -1078,7 +1101,7 @@ def path_report(kernels, dia_kernels, launches, label, run, plan, check,
         plan_text = f"plan {plan_ms:.1f} ms (host clock)"
         num = bench(numeric, device="cuda", name=label, warmup=1, runs=5,
                     flops=flops)
-        whole = bench(run, device="cuda", name=label, warmup=0, runs=2,
+        whole = bench(run, device="cuda", name=label, warmup=0, runs=1,
                       flops=flops)
     phase(f"{label}: {what}; launches={got}; {plan_text}; numeric median "
           f"{num.median_s * 1e3:.3f} ms; whole call median "
@@ -1911,6 +1934,255 @@ def bench_phase(launches) -> None:
         raise AssertionError(f"harness points failed: {harness.failed}")
 
 
+# ---- phase 19: the planned numeric phases as CUDA graphs -------------------
+
+# (suite matrix, path, value type): each planned phase routed through
+# ops/graphs, at full size
+GRAPH_PATHS = (
+    ("er_medium", "tilepack", torch.float32),
+    ("powerlaw_medium", "chunked", torch.float32),
+    ("circuit_64k", "grouped", torch.float32),
+    ("scircuit_256k", "grouped", torch.float32),
+    ("er_small", "grouped", torch.float64),
+    ("mc2depi_524k", "sptrsv lower", torch.float32),
+    ("mc2depi_524k", "sptrsv upper", torch.float32),
+)
+
+
+def same_bits(x, y) -> bool:
+    """Two results (CSRs or tensors) equal bit for bit."""
+    if hasattr(x, "rowptr"):
+        pairs = [(x.rowptr, y.rowptr), (x.colidx, y.colidx), (x.vals, y.vals)]
+    else:
+        pairs = [(x, y)]
+    return all(p.shape == q.shape and p.dtype == q.dtype and torch.equal(
+        p.contiguous().view(torch.uint8), q.contiguous().view(torch.uint8))
+        for p, q in pairs)
+
+
+def busy_share(fn, logdir: str):
+    """(device busy s, host-clock window s, kernel names) of one fn() under
+    ``utils/profiling.trace``."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.profiling import (
+        device_time_by_kernel,
+        trace,
+    )
+
+    for _ in range(3):  # the profiler now and then drops records
+        with trace(logdir) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        by = device_time_by_kernel(prof)
+        if by:
+            break
+    return sum(by.values()), window, len(by)
+
+
+def graph_operands(port, name: str, path: str, dtype):
+    """(public(), eager(), check(out) -> text, flops) of one GRAPH_PATHS
+    entry: the public call (graphs from the second call) and the eager
+    body with the same plan, both on the card."""
+    import scipy.sparse as sp
+
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        chunked,
+        grouped,
+        sptrsv,
+        tilepack,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+        spgemm_reference,
+    )
+
+    s = generators.SUITE[name]()
+    if path.startswith("sptrsv"):
+        from scipy.sparse.linalg import spsolve_triangular
+
+        lower = path.endswith("lower")
+        part = sp.tril(s) if lower else sp.triu(s)
+        tri = (part + sp.identity(s.shape[0], np.float32, format="csr")
+               * (np.abs(part).sum(axis=1).max() + 1.0)).tocsr()
+        t = port.CSR.from_scipy(tri, device="cuda")
+        x_np = np.random.default_rng(0).standard_normal(
+            s.shape[0]).astype(np.float32)
+        x = torch.from_numpy(x_np).cuda()
+        sched = port.make_trsv_plan(t, lower=lower)
+        want = spsolve_triangular(tri, x_np, lower=lower)
+
+        def check(out):
+            np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-3,
+                                       atol=1e-3)
+            return (f"x verified against scipy's spsolve_triangular; "
+                    f"{sched.plan.n_steps} steps, {sched.plan.n_levels} "
+                    f"levels")
+
+        return (lambda: port.sptrsv_planned(t, x, sched),
+                lambda: sptrsv._solve(t, x, sched.stream, sched.diag_pos,
+                                      sched.plan),
+                check, 2 * tri.nnz)
+    a = port.CSR.from_scipy(s, dtype=dtype, device="cuda")
+    products = int(np.diff(s.indptr)[s.indices].sum())
+    tol = F64_TOL if dtype == torch.float64 else F32_TOL
+    want = spgemm_reference(a, a)
+
+    def check(c):
+        assert_csr_equal(c, want, **tol)
+        return (f"nnzC={int(c.rowptr[-1])} verified against scipy (rtol "
+                f"{tol['rtol']:g})")
+
+    if path == "tilepack":
+        sc = port.make_tilepack_plan(a, a)
+        eager = lambda: tilepack._spgemm_tilepack(  # noqa: E731
+            a, a, sc.slot0, sc.q, sc.first_rank, sc.plan)
+        return (lambda: port.spgemm_tilepack(a, a, sc), eager, check,
+                2 * products)
+    if path == "grouped":
+        sc = port.make_grouped_plan(a, a)
+        eager = lambda: grouped._spgemm_grouped(  # noqa: E731
+            a, a, sc.slot0, sc.first_rank, sc.sorted_off, sc.fill_end,
+            sc.plan)
+        return (lambda: port.spgemm_grouped(a, a, sc), eager, check,
+                2 * products)
+    plan = port.make_chunked_plan(a, a)
+    return (lambda: port.spgemm_chunked(a, a, plan),
+            lambda: chunked._spgemm_chunked(a, a, plan), check, 2 * products)
+
+
+def ms_spread(res) -> str:
+    spread = (max(res.times) - min(res.times)) / res.median_s
+    return f"{res.median_s * 1e3:.3f} ms ({spread:.1%})"
+
+
+def graph_paths(port, kernels, dia_kernels, launches, card: str) -> None:
+    """Phase 19 (module docstring): each GRAPH_PATHS entry eager and
+    replayed, then the replay's behaviours."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
+    from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
+
+    logdir = os.path.join("_scratch", "traces", "graphs")
+    for name, path, dtype in GRAPH_PATHS:
+        label = f"graphs {name} {path} {str(dtype)[6:]}"
+        public, eager, check, flops = graph_operands(port, name, path, dtype)
+        graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host read raises
+        try:
+            ref = eager()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        eager_same = same_bits(eager(), ref)
+        busy, window, n_k = busy_share(eager, logdir)
+        peak = Peak("cuda").start()
+        num_e = bench(eager, device="cuda", name=label, warmup=2, runs=5,
+                      flops=flops)
+        peak_e = peak.text()
+        peak = Peak("cuda").start()
+        # as bench.py times it: warm-up 1 eager, warm-up 2 captures
+        num_g = bench(public, device="cuda", name=label, warmup=2, runs=5,
+                      flops=flops)
+        peak_g = peak.text()
+        c, got = drive(kernels, dia_kernels, public)
+        launches.update(got)
+        info = graphs.info()
+        if info["captures"] != 1 or len(info["graphs"]) != 1:
+            raise AssertionError(f"{label}: {info}")
+        g = info["graphs"][0]
+        pool = info["pool_bytes"]
+        what = check(c)
+        bit = same_bits(c, ref)
+        busy_g, window_g, n_kg = busy_share(public, logdir)
+        phase(f"{label}: {what}; capture {g['capture_ms']:.1f} ms, "
+              f"{info['captures']} graph, pool {pool / 2**30:.3f} "
+              f"GiB, {g['replays']} replays, launches a replay "
+              f"{g['launches']}; eager {ms_spread(num_e)} = "
+              f"{num_e.gflops_median:.3f} GFlops, replay {ms_spread(num_g)} "
+              f"= {num_g.gflops_median:.3f} GFlops, x"
+              f"{num_e.median_s / num_g.median_s:.2f}; replay bit-equal to "
+              f"eager: {bit} (eager to eager: {eager_same}); eager busy "
+              f"{busy * 1e3:.3f} of {window * 1e3:.3f} ms = "
+              f"{busy / window:.1%} ({n_k} kernels); replay seen by the "
+              f"profiler: {busy_g * 1e3:.3f} of {window_g * 1e3:.3f} ms = "
+              f"{busy_g / window_g:.1%} ({n_kg} kernels); eager "
+              f"{peak_e}; graph {peak_g} [{card}]")
+        if not bit and eager_same:
+            raise AssertionError(f"{label}: the replay differs from the "
+                                 f"eager call, which repeats bit for bit")
+        if path == "tilepack" and got["tile_sort_merge"] != 1:
+            raise AssertionError(f"{label}: a replay counted {got}")
+        del c, ref
+    graph_behaviours(port, graphs)
+    graphs.clear()
+
+
+def graph_behaviours(port, graphs) -> None:
+    """Two calls return distinct storage; new values on the same structure
+    give the new product; the out-of-core grouped blocks make one
+    capture."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import batched
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+        spgemm_reference,
+    )
+
+    graphs.clear()
+    a = suite_csr(port, "er_medium")
+    sched = port.make_tilepack_plan(a, a)
+    port.spgemm_tilepack(a, a, sched)
+    port.spgemm_tilepack(a, a, sched)
+    c1 = port.spgemm_tilepack(a, a, sched)
+    keep = [t.clone() for t in (c1.rowptr, c1.colidx, c1.vals)]
+    c2 = port.spgemm_tilepack(a, a, sched)
+    ptrs = {t.data_ptr() for t in (c1.rowptr, c1.colidx, c1.vals, c2.rowptr,
+                                   c2.colidx, c2.vals)}
+    held = all(same_bits(t, k) for t, k in
+               zip((c1.rowptr, c1.colidx, c1.vals), keep))
+    if len(ptrs) != 6 or not held:
+        raise AssertionError("two replays share storage or the first "
+                             "changed")
+    phase(f"graphs er_medium tilepack: two calls in a row return 6 "
+          f"distinct buffers, the first unchanged by the second")
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy(rng.uniform(-1, 1, a.capacity).astype(np.float32))
+    live = torch.arange(a.capacity) < int(a.rowptr[-1])
+    a2 = port.CSR(a.rowptr, a.colidx, torch.where(live, v, 0).cuda(),
+                  a.shape)
+    assert_csr_equal(port.spgemm_tilepack(a2, a2, sched),
+                     spgemm_reference(a2, a2), **F32_TOL)
+    if graphs.info()["captures"] != 1:
+        raise AssertionError(f"new values captured again: {graphs.info()}")
+    phase("graphs er_medium tilepack: new values on the same structure "
+          "replay the same graph and give the new product (verified "
+          "against scipy)")
+    del a, a2, c1, c2, keep
+    graphs.clear()
+    a = suite_csr(port, "circuit_64k")
+    s = a.to_scipy()
+    budget = -(-int(np.diff(s.indptr)[s.indices].sum()) // 3)
+    t0 = time.perf_counter()
+    c = port.spgemm_batched(a, a, stream_budget=budget, method="grouped")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plan = batched._cached_plan(a, a, budget, "grouped")
+    info = graphs.info()
+    assert_csr_equal(c, spgemm_reference(a, a), **F32_TOL)
+    if plan.method != "grouped" or len(plan.blocks) < 3 or \
+            info["captures"] != 1:
+        raise AssertionError(f"out of core: {plan.method}, "
+                             f"{len(plan.blocks)} blocks, {info}")
+    g = info["graphs"][0]
+    phase(f"graphs circuit_64k spgemm_batched(grouped, budget {budget}): "
+          f"{len(plan.blocks)} blocks, {info['captures']} capture "
+          f"({g['capture_ms']:.1f} ms, pool {info['pool_bytes'] / 2**30:.3f} "
+          f"GiB, {g['replays']} replays), first call {wall * 1e3:.1f} ms, "
+          f"verified against scipy")
+
+
 # ---- phases 17-18: the reference's scripts, through their entry points ----
 
 
@@ -1953,6 +2225,19 @@ def scripts_phase() -> None:
         raise AssertionError("acceptance did not pass every config")
 
 
+class Laps:
+    """Host seconds of each group of phases, printed as it ends."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        phase(f"[{what}: {now - self.last:.1f} s; {now - self.t0:.1f} s "
+              f"since the start]")
+        self.last = now
+
+
 def kernel_entry(name, source, replaces, launches, numbers) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{source}",
@@ -1964,6 +2249,7 @@ def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    lap = Laps()
     kind = torch.cuda.get_device_name(0)
     phase(f"device: {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -2014,18 +2300,30 @@ def main() -> int:
     k3["max_abs_err"] = max([k3_err] + [v["max_abs_err"]
                                         for v in k3_all.values()])
     del flush
+    lap("phases 1-6")
     # 7-9. the paths; only their launches count
     suite_picks(port)
     launches = collections.Counter()
     main_path(port, kernels, dia_kernels, launches)
     tiled_binned_paths(port, kernels, dia_kernels, launches)
     library_paths(port, kernels, dia_kernels, launches)
-    # 10. the AMG / ILU0 solver path
+    lap("phases 7-9")
+    # 10. the AMG / ILU0 solver path (its coarsest dense LU takes ~57 GiB)
+    # beside the graphs phases 7-9 left cached, as a caller's would be
+    from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
+
+    held = graphs.info()
+    phase(f"graphs held after phases 7-9: {len(held['graphs'])}, pool "
+          f"{held['pool_bytes'] / 2**30:.3f} GiB: "
+          + ", ".join(f"{g['fn']} ({g['replays']} replays)"
+                      for g in held["graphs"]))
     solver_paths(port, kernels, dia_kernels, launches, card)
+    lap("phase 10")
     # 12. bfloat16 through auto; 13. profiles; 14. the roofline shares
     bf16_paths(port, kernels, dia_kernels, launches)
     profile_paths(port, os.path.join("_scratch", "traces"))
     roofline_phase(card)
+    lap("phases 12-14")
     # 15. the distributed schedules (no kernel of K1-K3 on their path)
     dist_phase(card)
     phase(f"launches on the paths: {dict(launches)}")
@@ -2035,10 +2333,16 @@ def main() -> int:
     cli_ops()
     # 11. the CLI
     cli_run()
+    lap("phases 15 and 11")
+    # 19. the planned phases as CUDA graphs against eager
+    graph_paths(port, kernels, dia_kernels, launches, card)
+    lap("phase 19")
     # 16. the suite harness
     bench_phase(launches)
+    lap("phase 16")
     # 17-18. the large-scale demo and the acceptance driver
     scripts_phase()
+    lap("phases 17-18")
 
     print(json.dumps({"kernels": [
         kernel_entry("tile_sort_merge", "tile_sort_merge.cu",
