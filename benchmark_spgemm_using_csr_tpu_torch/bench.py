@@ -31,7 +31,8 @@ their GFlops, GFlops = flops / t / 1e9 with flops = 2 * nnzCt
 method's host plan (for dia: the DIA planes; for bsr: the BSR operands)
 is built before, outside the timed window, and each run is timed by CUDA
 events (``utils/timing.bench``, 2 warmups, 5 runs; on the card a
-chunked, grouped or tilepack phase replays its CUDA graph, ``ops/graphs``);
+chunked, grouped, tilepack or bsr phase replays its CUDA graph,
+``ops/graphs``, as do the triple and aggrap routes of R·A·P);
 ``spread`` is (max - min) / median. Beside it: the whole call
 ``api.spgemm(a, b, method="auto")`` once on the host clock, host planning
 and dispatch included, with the graphs dropped first so that it runs

@@ -92,7 +92,8 @@ def numeric_refresh(h: "AMGHierarchy", a_new: CSR) -> "AMGHierarchy":
     aggregation (the unsmoothed setup's P), else the cached fused triple
     plan (ops/reuse), else, when the triple stream is too large, the two
     chained products. Plans are cached on the hierarchy; the first refresh
-    builds them.
+    builds them. On the card each level's product replays one CUDA graph
+    from the second refresh on (``ops/graphs``).
     """
     from ..ops.aggrap import make_aggrap_plan, rap_aggregation
     from ..ops.reuse import make_triple_plan, spgemm_triple

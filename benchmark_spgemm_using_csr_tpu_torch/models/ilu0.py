@@ -13,7 +13,7 @@ and a masked dot per nonzero. Setup (host, one-time symbolic phase, copied
 from the reference) precomputes for every stored (i, j) the list of
 (position of l_ik, position of u_kj) dependency pairs, padded to the max
 count. The reference's ``lax.scan`` over the sweeps is a Python loop of
-tensor ops here.
+tensor ops here, captured as one CUDA graph per sweep count on the card.
 """
 from __future__ import annotations
 
@@ -90,10 +90,20 @@ def ilu0_plan(a_sp: sp.csr_matrix) -> ILU0Plan:
     return ILU0Plan(dep_l, dep_u, dep_mask, diag_pos, is_lower, row_of, col_of)
 
 
-def _sweep(vals0, vals, dep_l, dep_u, dep_mask, diag_pos, is_lower, col_of,
-           sweeps: int):
-    """``sweeps`` Jacobi-style relaxations of every factor entry at once."""
-    for _ in range(sweeps):
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """The static of the sweeps' body: their count, as the reference's
+    ``_sweep`` is keyed on ``sweeps``."""
+
+    sweeps: int
+
+
+def _sweep(vals0, dep_l, dep_u, dep_mask, diag_pos, is_lower, col_of,
+           plan: SweepPlan):
+    """``plan.sweeps`` Jacobi-style relaxations of every factor entry at
+    once, from A's values ``vals0``."""
+    vals = vals0
+    for _ in range(plan.sweeps):
         s = torch.where(dep_mask, vals[dep_l] * vals[dep_u], 0).sum(dim=1)
         u_diag = vals[diag_pos]
         new_u = vals0 - s
@@ -104,7 +114,12 @@ def _sweep(vals0, vals, dep_l, dep_u, dep_mask, diag_pos, is_lower, col_of,
 def ilu0(a: CSR, sweeps: int = 10, plan: ILU0Plan | None = None) -> CSR:
     """Compute the ILU0 factorization on ``a``'s device; returns a CSR
     holding L (strictly lower, unit diagonal implied) and U (upper incl.
-    diagonal) in A's sparsity pattern, the usual combined storage."""
+    diagonal) in A's sparsity pattern, the usual combined storage. The
+    sweeps replay one CUDA graph per (sweep count, shapes) on the card
+    from the second call (``ops/graphs``); the plan and the factor's way
+    back stay on the host, as in the reference."""
+    from ..ops import graphs
+
     a_sp = a.to_scipy()
     plan = plan or ilu0_plan(a_sp)
     dev = a.device
@@ -112,11 +127,10 @@ def ilu0(a: CSR, sweeps: int = 10, plan: ILU0Plan | None = None) -> CSR:
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    vals0 = up(a_sp.data)
-    vals = _sweep(
-        vals0, vals0, up(plan.dep_l), up(plan.dep_u), up(plan.dep_mask),
-        up(plan.diag_pos), up(plan.is_lower), up(plan.col_of.astype(np.int64)),
-        sweeps,
+    vals = graphs.run(
+        _sweep, SweepPlan(sweeps), up(a_sp.data), up(plan.dep_l),
+        up(plan.dep_u), up(plan.dep_mask), up(plan.diag_pos),
+        up(plan.is_lower), up(plan.col_of.astype(np.int64)),
     )
     out = a_sp.copy()
     out.data = vals.cpu().numpy()

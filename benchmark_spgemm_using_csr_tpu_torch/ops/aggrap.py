@@ -17,7 +17,9 @@ known at plan time:
   carrying the values, and sums and compacts the runs of equal keys
   (``ops/scancompact.runsum_compact_scan``);
 - C's rowptr and structure are plan constants: only values are computed,
-  as in ops/reuse.
+  as in ops/reuse;
+- on the card a call replays one CUDA graph per plan from the second call
+  on (``ops/graphs``).
 
 Gates (``make_aggrap_plan`` returns None), the reference's exactly:
 non-aggregation R/P, values other than float32, key bits > 32, nnz(A) of
@@ -153,23 +155,31 @@ def make_aggrap_plan(r: CSR, a: CSR, p: CSR) -> AggRapSchedule | None:
 
 def rap_aggregation(a: CSR, sched: AggRapSchedule) -> CSR:
     """C = R·A·P for NEW VALUES of A on the planned structure (the
-    numeric-refresh contract: structure is a plan constant)."""
-    from .scancompact import runsum_compact_scan
+    numeric-refresh contract: structure is a plan constant). On the card
+    one CUDA graph per plan from the second call (``ops/graphs``)."""
+    from . import graphs
 
     plan = sched.plan
-    vals = a.vals
+    out_col, out_val = graphs.run(_rap_aggregation, plan, a.vals, sched.keys,
+                                  sched.scale)
+    return CSR(rowptr=sched.rowptr, colidx=out_col, vals=out_val,
+               shape=(plan.m_c, plan.n_c))
+
+
+def _rap_aggregation(vals, keys, scale, plan: AggRapPlan):
+    """The eager body of ``rap_aggregation``: C's (out_cap,) columns and
+    values. The constant keys are sorted on every call, as in the
+    reference's jit body."""
+    from .scancompact import runsum_compact_scan
+
     buf = torch.zeros(plan.w, dtype=vals.dtype, device=vals.device)
     buf[: plan.nnz_a] = vals[: plan.nnz_a]
-    okey, perm = torch.sort(sched.keys)
-    oval = (buf * sched.scale)[perm]
+    okey, perm = torch.sort(keys)
+    oval = (buf * scale)[perm]
     keyc, valc, _ = runsum_compact_scan(
         okey, oval, w=plan.w, out_cap=plan.out_cap, max_run=plan.max_run,
         sentinel=plan.sentinel,
     )
     live = torch.arange(plan.out_cap, device=vals.device) < plan.nnz_c
     out_col = torch.where(live, keyc & ((1 << plan.cbits) - 1), 0)
-    out_val = torch.where(live, valc, 0)
-    return CSR(
-        rowptr=sched.rowptr, colidx=out_col.to(INDEX_DTYPE), vals=out_val,
-        shape=(plan.m_c, plan.n_c),
-    )
+    return out_col.to(INDEX_DTYPE), torch.where(live, valc, 0)

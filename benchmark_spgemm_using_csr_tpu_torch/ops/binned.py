@@ -20,6 +20,8 @@ the end.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -45,6 +47,23 @@ def _bin_products(a: CSR, b: CSR, rows, nnz_ct, prodstart, width: int):
     _, col, val = gather_products(a, b, torch.where(valid, g, 0), valid)
     col = torch.where(valid, col, n).to(torch.int32)
     return col, val
+
+
+@dataclasses.dataclass(frozen=True)
+class BinPlan:
+    """The static of one bin's stage: its lane width, as the reference's
+    ``_bin_numeric`` is keyed on ``width``."""
+
+    width: int
+
+
+def _bin_numeric(a: CSR, b: CSR, rows, nnz_ct, prodstart, plan: BinPlan):
+    """One bin's stage: its product tile through K2. Returns (cols, vals,
+    pos, counts) as ``kernels.bin_sort_compress`` does."""
+    from .kernels import bin_sort_compress
+
+    col, val = _bin_products(a, b, rows, nnz_ct, prodstart, plan.width)
+    return bin_sort_compress(col, val.contiguous(), n_sentinel=b.n)
 
 
 def _counts_add(counts_full, rows, counts):
@@ -103,10 +122,12 @@ def spgemm_binned_host(
     out_capacity: int | None = None,
     widths=DEFAULT_WIDTHS,
 ) -> CSR:
-    """Full binned SpGEMM (host-orchestrated over per-bin device stages)."""
-    from .kernels import bin_sort_compress
+    """Full binned SpGEMM (host-orchestrated over per-bin device stages).
+    On the card each bin's stage replays one CUDA graph per (width, bin
+    shape) from the second call, and so does the tail's ESC
+    (``ops/graphs``)."""
+    from . import graphs
 
-    n = b.n
     dev = a.device
     out_capacity = out_capacity or prod_capacity
     nnz_ct_dev = nnz_upper_bound(a, b).long()
@@ -117,9 +138,8 @@ def spgemm_binned_host(
     pieces = []  # (rows, cols, vals, counts, pos)
     for w, rows in bins.items():
         rows_dev = torch.from_numpy(rows).to(dev).long()
-        col, val = _bin_products(a, b, rows_dev, nnz_ct_dev, prodstart, w)
-        cols_t, vals_t, pos, counts = bin_sort_compress(
-            col, val.contiguous(), n_sentinel=n)
+        cols_t, vals_t, pos, counts = graphs.run(
+            _bin_numeric, BinPlan(w), a, b, rows_dev, nnz_ct_dev, prodstart)
         pieces.append((rows_dev, cols_t, vals_t, counts, pos))
 
     c_tail = tail_dev = None

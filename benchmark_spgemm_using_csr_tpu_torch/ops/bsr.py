@@ -8,13 +8,17 @@ into a batched matmul:
    block index matches, through one packed (cap_e, 3) per-entry table
    (A block row, B row start, first pair) gathered once per pair;
 2. **duplicate merge** by (block row, block col): a sort of the pair
-   metadata (never the payloads) gives every pair its output slot;
-   padding pairs go to a dump slot past the end;
-3. **the products**, streamed over chunks of pair ids: each chunk gathers
-   its (p, bm, bk) A blocks and (p, bk, bn) B blocks, multiplies them with
-   ``torch.bmm`` in IEEE float32 whatever the caller's TF32 setting
-   (float64 in native float64), and index-adds the products into their
-   output slots.
+   metadata (never the payloads) puts every output block's pairs in one
+   run and gives each run its output slot; padding pairs go to a dump
+   slot past the end;
+3. **the products**, streamed over chunks of the sorted pairs: each chunk
+   gathers its (p, bm, bk) A blocks and (p, bk, bn) B blocks, multiplies
+   them with ``torch.bmm`` in IEEE float32 whatever the caller's TF32
+   setting (float64 in native float64), sums each run with
+   ``torch.segment_reduce`` and adds the sums into their slots, one add
+   per slot and chunk. Every sum runs in a fixed order, so a CUDA graph's
+   replay (``ops/graphs``) is bit-equal to the eager call; an index-add of
+   every product into its slot is not (float atomics).
 
 Zeros inside blocks are multiplied too, so the work grows with the inverse
 block density; the dispatcher weighs that (ops/dispatch.estimate_bsr_s).
@@ -72,11 +76,22 @@ def make_bsr_plan(a: BSR, b: BSR) -> BsrPlan:
 
 
 def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
-    """C = A @ B with A (bm, bk) and B (bk, bn) blocks; C gets (bm, bn)."""
-    bm, bk = a.blocks.shape[1], a.blocks.shape[2]
-    bk2, bn = b.blocks.shape[1], b.blocks.shape[2]
+    """C = A @ B with A (bm, bk) and B (bk, bn) blocks; C gets (bm, bn).
+    On the card one CUDA graph per plan from the second call
+    (``ops/graphs``)."""
+    from . import graphs
+
+    bk, bk2 = a.blocks.shape[2], b.blocks.shape[1]
     if bk != bk2:
         raise ValueError(f"block inner dims mismatch: {bk} vs {bk2}")
+    return graphs.run(_bsr_spgemm, plan, a, b)
+
+
+def _bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
+    """The eager body of ``bsr_spgemm``: no value read on the host, and
+    every sum in a fixed order (a replay is bit-equal to it)."""
+    bm, bk = a.blocks.shape[1], a.blocks.shape[2]
+    bn = b.blocks.shape[2]
     mb = a.shape[0] // bm
     nb = b.shape[1] // bn
     P = plan.pairs_cap
@@ -110,19 +125,31 @@ def bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     is_head = (key_s != prev) & live
     uniq_s = torch.cumsum(is_head.long(), 0) - 1
     n_uniq = is_head.sum()
-    slot = torch.empty_like(pid_s)
-    slot[pid_s] = torch.where(live, uniq_s, cap_out)  # back to pair order
+    # each sorted pair's output slot: consecutive runs, padding pairs last
+    # in the dump slot
+    slot_s = torch.where(live, uniq_s, cap_out)
+    a_src, b_src = src[pid_s], b_idx[pid_s]
 
-    # ---- 3. the block products, a chunk of pairs at a time (padding pairs
-    # land in the dump slot) ---------------------------------------------
+    # ---- 3. the block products, a chunk of sorted pairs at a time: each
+    # chunk's runs summed in order (segment_reduce), then added to their
+    # slots, one add per slot and chunk ---------------------------------
     chunk = max(BSR_CHUNK_BYTES // (bk * bn * b.blocks.element_size()), 1)
     out = torch.zeros((cap_out + 1, bm, bn), dtype=a.blocks.dtype, device=dev)
     for lo in range(0, P, chunk):
         hi = min(lo + chunk, P)
         with ieee_fp32():
-            prod = torch.bmm(a.blocks[src[lo:hi]], b.blocks[b_idx[lo:hi]])
-        _scatter(cap_out, slot[lo:hi], prod, accumulate=True, out=out)
-        del prod
+            prod = torch.bmm(a.blocks[a_src[lo:hi]], b.blocks[b_src[lo:hi]])
+        s = slot_s[lo:hi]
+        # run j of the chunk is slot s[0] + j; padding pairs past the last
+        # run go to run hi - lo, and every run of theirs to the dump slot
+        run = torch.clamp(s - s[0], max=hi - lo)
+        lengths = _scatter(hi - lo + 1, run, _ones(run), accumulate=True)
+        sums = torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+        j = torch.arange(hi - lo + 1, device=dev)
+        tgt = torch.where((lengths > 0) & (j < hi - lo), s[0] + j, cap_out)
+        out.index_add_(0, torch.clamp(tgt, max=cap_out), sums)
+        del prod, sums
     out_blocks = out[:cap_out]
 
     # output structure: heads carry (brow, bcol) at slot uniq_s

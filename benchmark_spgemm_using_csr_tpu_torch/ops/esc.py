@@ -11,6 +11,8 @@ resulting CSR is the same.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, acc_dtype
@@ -71,10 +73,14 @@ def sort_compress(row, col, val, m: int, out_capacity: int, val_dtype=None):
     counts.index_add_(0, row, head_valid.long())
     rowptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts[:m], 0)])
 
-    # out-of-range targets go to the dump slot `out_capacity`
+    # each run summed in order (segment_reduce over the runs' lengths,
+    # not a float index-add, whose atomics add in no fixed order); the
+    # invalid tail and runs past out_capacity go to the dump run
+    # `out_capacity`
     seg_sum = torch.where(valid, seg, out_capacity).clamp(max=out_capacity)
-    out_val = torch.zeros(out_capacity + 1, dtype=val.dtype, device=dev)
-    out_val.index_add_(0, seg_sum, torch.where(valid, val, 0))
+    lengths = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
+    lengths.index_add_(0, seg_sum, torch.ones_like(seg_sum))
+    out_val = torch.segment_reduce(val, "sum", lengths=lengths, unsafe=True)
     tgt = torch.where(head_valid, seg, out_capacity).clamp(max=out_capacity)
     out_col = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
     out_col[tgt] = col
@@ -85,15 +91,34 @@ def sort_compress(row, col, val, m: int, out_capacity: int, val_dtype=None):
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class EscPlan:
+    """The two capacities of ``spgemm_esc_padded``, static in the
+    reference's jit."""
+
+    prod_capacity: int
+    out_capacity: int
+
+
 def spgemm_esc_padded(a: CSR, b: CSR, prod_capacity: int,
                       out_capacity: int) -> CSR:
     """C = A @ B with static buffer sizes.
 
     ``prod_capacity`` must be >= total intermediate products (stage-1
     bound); ``out_capacity`` must be >= nnz(C) (prod_capacity suffices).
+    On the card one CUDA graph per (capacities, operand shapes) from the
+    second call (``ops/graphs``).
     """
-    row, col, val = expand_products(a, b, prod_capacity)
+    from . import graphs
+
+    return graphs.run(_spgemm_esc, EscPlan(prod_capacity, out_capacity),
+                      a, b)
+
+
+def _spgemm_esc(a: CSR, b: CSR, plan: EscPlan) -> CSR:
+    """The eager body of ``spgemm_esc_padded``."""
+    row, col, val = expand_products(a, b, plan.prod_capacity)
     rowptr, out_col, out_val = sort_compress(
-        row, col, val, a.m, out_capacity, a.vals.dtype
+        row, col, val, a.m, plan.out_capacity, a.vals.dtype
     )
     return CSR(rowptr=rowptr, colidx=out_col, vals=out_val, shape=(a.m, b.n))

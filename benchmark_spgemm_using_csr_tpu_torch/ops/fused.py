@@ -88,7 +88,16 @@ def _rows_where(mask: torch.Tensor, size: int) -> torch.Tensor:
 
 def spgemm_fused(a: CSR, b: CSR, plan: SpGemmPlan) -> CSR:
     """C = A @ B under a shape plan. Bins past the plan's capacities are
-    silently truncated: the facade builds the plan from the matrix."""
+    silently truncated: the facade builds the plan from the matrix. On the
+    card one CUDA graph per plan, K2 for every bin inside it, from the
+    second call (``ops/graphs``)."""
+    from . import graphs
+
+    return graphs.run(_spgemm_fused, plan, a, b)
+
+
+def _spgemm_fused(a: CSR, b: CSR, plan: SpGemmPlan) -> CSR:
+    """The eager body of ``spgemm_fused``."""
     from .kernels import bin_sort_compress
 
     n = b.n

@@ -6,8 +6,12 @@ plan and replays the executable for any operand arrays of the same shapes.
 ``run(fn, plan, *args)`` does the same on the card with a CUDA graph:
 
 - **Key**: the function, the plan (a frozen dataclass of ints and bools,
-  so equal plans hash equal), the device, and the (shape, dtype) of every
-  tensor argument (a ``CSR`` contributes its three buffers and its shape).
+  so equal plans hash equal: a Python int the reference makes static,
+  such as a width, a capacity or a sweep count, goes in through it), the
+  device, and the (shape, dtype) of every tensor argument (a ``CSR`` or
+  ``BSR`` contributes its three buffers and its shape). A scalar the
+  reference traces, such as spadd's alpha, is a 0-d tensor argument, so
+  another value replays the same graph.
   The schedule's device tensors are arguments, not part of the key, so
   the row blocks of the out-of-core path, planned under one set of
   statics, share one graph.
@@ -27,12 +31,20 @@ Every graph on a device is captured into one memory pool, that of a
 cached graph. Replays run one after another on the caller's stream and
 their outputs are cloned at once, so one graph's temporaries may reuse
 another's: the pool holds the largest body's temporaries and the cached
-graphs' outputs, not the sum of their peaks. The cache holds
-``MAX_GRAPHS`` entries, least recently used first out; an entry that
-leaves frees its inputs and outputs, and the pool goes back to PyTorch's
-caching allocator with the last graph (``clear()`` drops them all). The
+graphs' outputs, not the sum of their peaks.
+
+**Cache policy.** What a graph holds on its own is its static inputs and
+outputs (``Graph.nbytes``); its temporaries lie in the shared pool. The
+cache is bounded by those bytes: at most ``MAX_GRAPH_BYTES`` of them,
+least recently used first out. A graph that leaves frees its inputs and
+outputs, and its key is retired: it runs the eager body from then on, so
+a cycle over more keys than the budget holds captures each key once, not
+on every call. ``clear()`` drops every graph and forgets every key; the
+pool goes back to PyTorch's caching allocator with the last graph, and the
 allocator returns it to the device at ``torch.cuda.empty_cache()`` or
-when an allocation would otherwise fail.
+when an allocation would otherwise fail. Under ``with eager():`` every
+call runs the eager body, whatever the cache holds (a measurement of the
+eager call beside the replay).
 
 CPU tensors, and any other device but CUDA, run the eager body: that is
 what the caller asked for. On CUDA a capture or a replay that fails
@@ -46,29 +58,36 @@ adds them to the counters.
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import torch
 
-from ..sparse.csr import CSR
+from ..sparse.csr import BSR, CSR
 
-# Four graphs: one of each planned ESC method a caller alternates between,
-# or the two products of a chained R·A·P beside the two triangular solves
-# of an exact-ILU0 preconditioner. They share one pool (module docstring),
-# which an ESC body's temporaries take to ~5 GiB on the suite's largest
-# points.
-MAX_GRAPHS = 4
-# keys called once on the card (a capture waits for a second call)
-MAX_SEEN = 64
+# The static inputs and outputs the cached graphs may hold. One AMG
+# hierarchy's numeric refresh (a graph per coarse level: 9 on
+# mc2depi_524k's unsmoothed setup) and the four planned ESC methods on
+# the suite's large points hold 0.67 GiB together (chip_smoke.py phase
+# 19), so they fit with room for more; the temporaries of the largest
+# body (~5 GiB on those points) lie in the shared pool beside it.
+MAX_GRAPH_BYTES = 4 << 30
+# keys called once on the card (a capture waits for a second call), and
+# keys whose graph left the cache (they run eager until ``clear()``)
+MAX_SEEN = 256
 
 
 class LRU:
-    """A bounded map, least recently used first out; ``on_evict(value)``
-    runs for every value that leaves (eviction, ``pop`` or ``clear``)."""
+    """A bounded map, least recently used first out: the ``size(value)``
+    of the values it holds add up to at most ``cap`` (a value larger than
+    ``cap`` alone stays alone). ``on_evict(value)`` runs for every value
+    that leaves (eviction, ``pop`` or ``clear``)."""
 
-    def __init__(self, cap: int, on_evict=None):
+    def __init__(self, cap: int, on_evict=None, size=lambda value: 1):
         self.cap = cap
         self.on_evict = on_evict
+        self.size = size
+        self.total = 0
         self._items: collections.OrderedDict = collections.OrderedDict()
 
     def __len__(self) -> int:
@@ -89,12 +108,14 @@ class LRU:
 
     def put(self, key, value) -> None:
         self.pop(key)
-        self.trim(self.cap - 1)
+        self.trim(self.cap - self.size(value))
         self._items[key] = value
+        self.total += self.size(value)
 
     def trim(self, n: int) -> None:
-        """Evict the least recent values until at most ``n`` stay."""
-        while len(self._items) > n:
+        """Evict the least recent values until their sizes add up to at
+        most ``n``."""
+        while self._items and self.total > n:
             self._leave(self._items.popitem(last=False)[1])
 
     def pop(self, key) -> None:
@@ -102,10 +123,10 @@ class LRU:
             self._leave(self._items.pop(key))
 
     def clear(self) -> None:
-        while self._items:
-            self._leave(self._items.popitem(last=False)[1])
+        self.trim(-1)
 
     def _leave(self, value) -> None:
+        self.total -= self.size(value)
         if self.on_evict is not None:
             self.on_evict(value)
 
@@ -119,6 +140,9 @@ def _describe(x, leaves: list):
     if isinstance(x, CSR):
         return ("CSR", tuple(x.shape), _describe(x.rowptr, leaves),
                 _describe(x.colidx, leaves), _describe(x.vals, leaves))
+    if isinstance(x, BSR):
+        return ("BSR", tuple(x.shape), _describe(x.rowptr, leaves),
+                _describe(x.colidx, leaves), _describe(x.blocks, leaves))
     if isinstance(x, tuple):
         return ("tuple",) + tuple(_describe(y, leaves) for y in x)
     raise TypeError(f"no graph argument of type {type(x).__name__}")
@@ -130,8 +154,9 @@ def _rebuild(desc, tensors):
     kind = desc[0]
     if kind == "tensor":
         return next(tensors)
-    if kind == "CSR":
-        return CSR(_rebuild(desc[2], tensors), _rebuild(desc[3], tensors),
+    if kind in ("CSR", "BSR"):
+        cls = CSR if kind == "CSR" else BSR
+        return cls(_rebuild(desc[2], tensors), _rebuild(desc[3], tensors),
                    _rebuild(desc[4], tensors), desc[1])
     return tuple(_rebuild(d, tensors) for d in desc[1:])
 
@@ -160,19 +185,25 @@ def _counted():
             "dia_spgemm_fused": dia_kernels.dia_spgemm_fused}
 
 
-class Graph:
-    """One captured body: its static inputs and outputs, the launches of
-    each counted kernel it holds, and its capture time."""
+def _nbytes(tensors) -> int:
+    return sum(t.nbytes for t in tensors)
 
-    def __init__(self, fn, plan, device, desc, tensors, pool=None):
+
+class Graph:
+    """One captured body: its key, static inputs and outputs, the pool it
+    was captured into, the launches of each counted kernel it holds, and
+    its capture time."""
+
+    def __init__(self, fn, plan, key, tensors, pool=None):
         self.name = getattr(fn, "__qualname__", repr(fn))
-        self.device = device
+        self.key = key
+        self.device = device = key[2]
         self.replays = 0
         with torch.cuda.device(device):
             self.static_in = [torch.empty(t.shape, dtype=t.dtype,
                                           device=device) for t in tensors]
             self._copy_in(tensors)
-            args = _rebuild(desc, iter(self.static_in))
+            args = _rebuild(key[3], iter(self.static_in))
             # warm-up on a side stream (PyTorch's capture recipe)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -194,8 +225,13 @@ class Graph:
                 for k, w in wrappers.items():
                     w.launches = before[k]
             self.capture_s = time.perf_counter() - t0
+        self.pool = self.graph.pool()
         self.static_out: list = []
         self.out_desc = _describe(out, self.static_out)
+        self.in_bytes = _nbytes(self.static_in)
+        self.out_bytes = _nbytes(self.static_out)
+        # what the cache's budget counts (module docstring)
+        self.nbytes = self.in_bytes + self.out_bytes
 
     def _copy_in(self, tensors) -> None:
         for s, t in zip(self.static_in, tensors):
@@ -221,41 +257,69 @@ class Graph:
 
     def info(self) -> dict:
         return {"fn": self.name, "capture_ms": self.capture_s * 1e3,
-                "replays": self.replays, "launches": dict(self.launches)}
+                "replays": self.replays, "launches": dict(self.launches),
+                "in_bytes": self.in_bytes, "out_bytes": self.out_bytes}
 
 
-_graphs = LRU(MAX_GRAPHS, on_evict=Graph.release)
+def _evict(graph) -> None:
+    graph.release()
+    _retired.put(graph.key, True)
+
+
+_graphs = LRU(MAX_GRAPH_BYTES, on_evict=_evict, size=lambda g: g.nbytes)
 _seen = LRU(MAX_SEEN)
+_retired = LRU(MAX_SEEN)
+_eager = False
 # captures since the last clear()
 captures = 0
 
 
 def run(fn, plan, *args):
-    """``fn(*args, plan)``: the eager body off CUDA and on a key's first
-    call; a captured graph's replay from the second call on (module
-    docstring)."""
-    global captures
+    """``fn(*args, plan)``: the eager body off CUDA, on a key's first call
+    and once its graph has left the cache; a captured graph's replay from
+    the second call on (module docstring)."""
     key, tensors = cache_key(fn, plan, *args)
-    if key[2].type != "cuda":
+    if key[2].type != "cuda" or _eager:
         return fn(*args, plan)
+    graph = _lookup(key, lambda pool: Graph(fn, plan, key, tensors, pool))
+    return fn(*args, plan) if graph is None else graph.replay(tensors)
+
+
+def _lookup(key, capture):
+    """The cached graph of ``key``, or a new one from ``capture(pool)`` on
+    the key's second call, or None: run the eager body (the key's first
+    call, or a retired key)."""
+    global captures
     graph = _graphs.get(key)
-    if graph is None:
-        if key not in _seen:
-            _seen.put(key, True)
-            return fn(*args, plan)
-        _seen.pop(key)
-        _graphs.trim(MAX_GRAPHS - 1)  # evict before the capture allocates
-        pool = next((g.graph.pool() for g in _graphs.values()
-                     if g.device == key[2]), None)
-        graph = Graph(fn, plan, key[2], key[3], tensors, pool)
-        _graphs.put(key, graph)
-        captures += 1
-    return graph.replay(tensors)
+    if graph is not None or key in _retired:
+        return graph
+    if key not in _seen:
+        _seen.put(key, True)
+        return None
+    _seen.pop(key)
+    pool = next((g.pool for g in _graphs.values() if g.device == key[2]),
+                None)
+    graph = capture(pool)
+    captures += 1
+    _graphs.put(key, graph)
+    return graph
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block, every ``run`` runs the eager body; the cache is
+    left as it is."""
+    global _eager
+    was, _eager = _eager, True
+    try:
+        yield
+    finally:
+        _eager = was
 
 
 def pool_bytes() -> int:
     """The bytes the cached graphs' pools hold on their devices."""
-    pools = {(g.device.index, tuple(g.graph.pool())) for g in _graphs.values()}
+    pools = {(g.device.index, tuple(g.pool)) for g in _graphs.values()}
     if not pools:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -263,16 +327,19 @@ def pool_bytes() -> int:
 
 
 def info() -> dict:
-    """The captures since ``clear()``, the bytes of the graphs' pools, and
-    each cached graph's ``info()``, least recently used first."""
-    return {"captures": captures, "pool_bytes": pool_bytes(),
+    """The captures since ``clear()``, the retired keys, the bytes of the
+    graphs' pools and of their own inputs and outputs, and each cached
+    graph's ``info()``, least recently used first."""
+    return {"captures": captures, "retired": len(_retired),
+            "pool_bytes": pool_bytes(), "graph_bytes": _graphs.total,
             "graphs": [g.info() for g in _graphs.values()]}
 
 
 def clear() -> None:
-    """Drop every graph and every once-seen key; the pools go back to the
+    """Drop every graph and forget every key; the pools go back to the
     caching allocator (module docstring)."""
     global captures
     _graphs.clear()
     _seen.clear()
+    _retired.clear()
     captures = 0

@@ -14,8 +14,9 @@ sums with a segmented ``lax.associative_scan``; here the sum is
 the rounding error inside each slot's own products; a global
 cumsum-then-diff does not, and on a mixed-sign stream with large
 cancellation it falls outside the float32 tolerance
-(``tests/test_torch_reuse.py`` shows it). bfloat16 products accumulate in
-float32, as in the reference.
+(``tests/test_torch_reuse.py`` shows it), and its order is fixed, so a
+CUDA graph's replay (``ops/graphs``) is bit-equal to the eager call.
+bfloat16 products accumulate in float32, as in the reference.
 """
 from __future__ import annotations
 
@@ -155,14 +156,23 @@ def spgemm_numeric(a: CSR, b: CSR, sched: NumericSchedule) -> CSR:
 
     ``a``/``b`` may carry different values than at plan time but MUST have
     the exact sparsity structures the plan was built from (not checked on
-    the hot path). Output structure is identical across calls.
+    the hot path). Output structure is identical across calls. On the card
+    one CUDA graph per plan from the second call (``ops/graphs``).
     """
+    from . import graphs
+
     plan = sched.plan
-    dt = torch.promote_types(a.vals.dtype, b.vals.dtype)
-    prod = (a.vals.to(dt)[sched.a_idx[: plan.total]]
-            * b.vals.to(dt)[sched.b_idx[: plan.total]])
-    vals = _slot_sums(prod, sched.lengths, plan.out_cap, dt)
+    vals = graphs.run(_numeric, plan, a.vals, b.vals, sched.a_idx,
+                      sched.b_idx, sched.lengths)
     return CSR(sched.rowptr, sched.colidx, vals, (plan.m, plan.n))
+
+
+def _numeric(a_vals, b_vals, a_idx, b_idx, lengths, plan: NumericPlan):
+    """The eager body of ``spgemm_numeric``: C's (out_cap,) values."""
+    dt = torch.promote_types(a_vals.dtype, b_vals.dtype)
+    prod = (a_vals.to(dt)[a_idx[: plan.total]]
+            * b_vals.to(dt)[b_idx[: plan.total]])
+    return _slot_sums(prod, lengths, plan.out_cap, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -281,16 +291,26 @@ def make_triple_plan(
 
 def spgemm_triple(r: CSR, a: CSR, p: CSR, sched: TripleSchedule) -> CSR:
     """Numeric-only RAP = R @ A @ P on a prebuilt triple plan (no
-    intermediate AP)."""
+    intermediate AP); on the card one CUDA graph per plan from the second
+    call (``ops/graphs``)."""
+    from . import graphs
+
     plan = sched.plan
-    dt = torch.promote_types(torch.promote_types(r.vals.dtype, a.vals.dtype),
-                             p.vals.dtype)
-    cat = torch.cat([
-        r.vals.to(dt)[: plan.nnz_r],
-        a.vals.to(dt)[: plan.nnz_a],
-        p.vals.to(dt),
-    ])
-    v3 = cat[sched.idx3[: plan.total]]  # (total, 3)
-    prod = v3[:, 0] * v3[:, 1] * v3[:, 2]
-    vals = _slot_sums(prod, sched.lengths, plan.out_cap, dt)
+    vals = graphs.run(_triple_numeric, plan, r.vals, a.vals, p.vals,
+                      sched.idx3, sched.lengths)
     return CSR(sched.rowptr, sched.colidx, vals, (plan.m, plan.n))
+
+
+def _triple_numeric(r_vals, a_vals, p_vals, idx3, lengths,
+                    plan: TriplePlan):
+    """The eager body of ``spgemm_triple``: RAP's (out_cap,) values."""
+    dt = torch.promote_types(torch.promote_types(r_vals.dtype, a_vals.dtype),
+                             p_vals.dtype)
+    cat = torch.cat([
+        r_vals.to(dt)[: plan.nnz_r],
+        a_vals.to(dt)[: plan.nnz_a],
+        p_vals.to(dt),
+    ])
+    v3 = cat[idx3[: plan.total]]  # (total, 3)
+    prod = v3[:, 0] * v3[:, 1] * v3[:, 2]
+    return _slot_sums(prod, lengths, plan.out_cap, dt)

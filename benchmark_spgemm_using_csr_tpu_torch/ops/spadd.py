@@ -63,9 +63,22 @@ def make_add_plan(a: CSR, b: CSR) -> AddPlan:
 
 def spadd_planned(a: CSR, b: CSR, plan: AddPlan, alpha=1.0,
                   beta=1.0) -> CSR:
-    """C = alpha*A + beta*B under a plan."""
-    m, n = a.shape
+    """C = alpha*A + beta*B under a plan. On the card one CUDA graph per
+    plan from the second call (``ops/graphs``); alpha and beta go in as
+    0-d tensors of C's type, as the reference traces them, so other
+    scalings replay the same graph."""
+    from . import graphs
+
     dt = torch.promote_types(a.dtype, b.dtype)
+    alpha, beta = (torch.full((), x, dtype=dt, device=a.device)
+                   for x in (alpha, beta))
+    return graphs.run(_spadd, plan, a, b, alpha, beta)
+
+
+def _spadd(a: CSR, b: CSR, alpha, beta, plan: AddPlan) -> CSR:
+    """The eager body of ``spadd_planned``."""
+    m, n = a.shape
+    dt = alpha.dtype
     # padding slots already carry row == m, the invalid marker
     row = torch.cat([a.row_ids(), b.row_ids()]).long()
     col = torch.cat([a.colidx, b.colidx]).long()

@@ -89,7 +89,16 @@ def expand_rows(a: CSR, b: CSR, plan: TiledPlan):
 
 
 def spgemm_tiled(a: CSR, b: CSR, plan: TiledPlan) -> CSR:
-    """C = A @ B via per-row lane tiles and kernel K2."""
+    """C = A @ B via per-row lane tiles and kernel K2; on the card one
+    CUDA graph per plan, K2 inside it, from the second call
+    (``ops/graphs``)."""
+    from . import graphs
+
+    return graphs.run(_spgemm_tiled, plan, a, b)
+
+
+def _spgemm_tiled(a: CSR, b: CSR, plan: TiledPlan) -> CSR:
+    """The eager body of ``spgemm_tiled``."""
     from .kernels import bin_sort_compress
 
     m, n = a.m, b.n

@@ -151,9 +151,22 @@ Phases, each printing one line (or a few):
    and what the profiler sees of a replay. Then: two calls in a row return
    distinct storage; new values on the same structure replay the same
    graph and give the new product; the out-of-core grouped path on
-   circuit_64k in 3+ blocks makes one capture. Phase 10 (its coarse LU
-   takes ~57 GiB) runs beside the graphs phases 7-9 left cached, and
-   first prints them and their shared pool.
+   circuit_64k in 3+ blocks makes one capture. Then one row, as above,
+   for each planned body of the solver path, bsr and the K2 paths
+   (``NEW_GRAPH_PATHS``, full size): mc2depi_524k's numeric refresh (A x
+   1.5) on phase 10's unsmoothed (9 coarse levels: 9 graphs) and
+   smoothed hierarchies, poisson2d_256's triple product and aggregation
+   R·A·P, mc2depi_524k's A + A^T, dense_rows_2k's bsr in float32 and on
+   bfloat16 operands, banded_16k's in float64, mc2depi_524k's tiled (K2),
+   powerlaw_medium's binned (a graph a bin and one for the tail's ESC)
+   and fused (K2), and poisson2d_256's 10 ILU0 sweeps, each row also
+   with the bytes a replay copies in and clones out beside the bodies'
+   own least traffic (inputs read once, outputs written once); the eager
+   call there is the public call under ``graphs.eager()``. Last, the
+   unsmoothed refresh interleaved with the four ESC paths, four rounds:
+   13 captures in round 2, none after. Phase 10 (its coarse LU takes ~57
+   GiB) runs beside the graphs phases 7-9 left cached, and prints them
+   and their shared pool before and after.
 
 No kernel of K1-K3 lies on the paths of phases 17 and 18 (the
 out-of-core blocks run chunked or grouped). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
@@ -1436,10 +1449,12 @@ class Recorder:
 
 
 def solver_paths(port, kernels, dia_kernels, launches, card: str,
-                 device="cuda") -> None:
+                 device="cuda"):
     """Phase 10: the AMG / ILU0 solver path at full size, seed 0, float32.
     Every result is verified; its host and device times and its peak
-    device memory are printed beside the card's name."""
+    device memory are printed beside the card's name. Returns the AMG
+    matrix and its two hierarchies ({smooth: hierarchy}, the coarse LU
+    dropped) for phase 19."""
     from benchmark_spgemm_using_csr_tpu_torch.models import amg, ilu0
     from benchmark_spgemm_using_csr_tpu_torch.ops import (
         aggrap,
@@ -1675,7 +1690,9 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
     if not hist[-1] < 1e-4 or not true_res < AMG_TRUE_RESIDUAL:
         raise AssertionError(f"AMG solve: history {hist[-1]:.3e}, true "
                              f"residual {true_res:.3e}")
-    del hier
+    for h in hier.values():
+        h.__dict__.pop("_coarse_lu", None)  # ~30 GiB
+    amg_sp = a_sp
 
     # -- ILU0 on mc2depi_524k, and PCG against CG -----------------------------
     a = port.CSR.from_scipy(a_sp, device=device)
@@ -1747,6 +1764,7 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
         f"each, schedules built once); {peak}")
     if not hist[-1] < 1e-5 or not true_res < 1e-3:
         raise AssertionError(f"exact ILU0-PCG: {hist[-1]:.3e}, {true_res:.3e}")
+    return amg_sp, hier
 
 
 # ---- phase 15: the distributed schedules on the card ---------------------
@@ -1949,15 +1967,28 @@ GRAPH_PATHS = (
 )
 
 
-def same_bits(x, y) -> bool:
-    """Two results (CSRs or tensors) equal bit for bit."""
+def result_tensors(x) -> list:
+    """The tensors of a result: a tensor, a CSR or BSR, an AMG hierarchy's
+    coarse operators, or a tuple of those."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if hasattr(x, "levels"):
+        return [t for lv in x.levels[1:] for t in result_tensors(lv.a)]
+    if hasattr(x, "blocks"):
+        return [x.rowptr, x.colidx, x.blocks]
     if hasattr(x, "rowptr"):
-        pairs = [(x.rowptr, y.rowptr), (x.colidx, y.colidx), (x.vals, y.vals)]
-    else:
-        pairs = [(x, y)]
-    return all(p.shape == q.shape and p.dtype == q.dtype and torch.equal(
-        p.contiguous().view(torch.uint8), q.contiguous().view(torch.uint8))
-        for p, q in pairs)
+        return [x.rowptr, x.colidx, x.vals]
+    return [t for y in x for t in result_tensors(y)]
+
+
+def same_bits(x, y) -> bool:
+    """Two results (CSRs, BSRs, hierarchies or tensors) equal bit for
+    bit."""
+    xs, ys = result_tensors(x), result_tensors(y)
+    return len(xs) == len(ys) and all(
+        p.shape == q.shape and p.dtype == q.dtype and torch.equal(
+            p.contiguous().view(torch.uint8), q.contiguous().view(torch.uint8))
+        for p, q in zip(xs, ys))
 
 
 def busy_share(fn, logdir: str):
@@ -2058,66 +2089,291 @@ def ms_spread(res) -> str:
     return f"{res.median_s * 1e3:.3f} ms ({spread:.1%})"
 
 
-def graph_paths(port, kernels, dia_kernels, launches, card: str) -> None:
-    """Phase 19 (module docstring): each GRAPH_PATHS entry eager and
-    replayed, then the replay's behaviours."""
+def graph_row(kernels, dia_kernels, launches, card, label, public, eager,
+              check, flops, n_graphs=1, host_plan=False) -> None:
+    """One row of phase 19 (module docstring): ``eager()`` and ``public()``
+    timed, ``public()`` driven once (its launches counted) and checked,
+    its graphs' numbers read from ``graphs.info()``. ``host_plan``: the
+    call reads the host by design (binned's plan), so the sync debug
+    check is left out."""
     from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
     from benchmark_spgemm_using_csr_tpu_torch.utils.timing import bench
 
     logdir = os.path.join("_scratch", "traces", "graphs")
-    for name, path, dtype in GRAPH_PATHS:
-        label = f"graphs {name} {path} {str(dtype)[6:]}"
-        public, eager, check, flops = graph_operands(port, name, path, dtype)
-        graphs.clear()
-        torch.cuda.synchronize()
+    graphs.clear()
+    torch.cuda.synchronize()
+    if host_plan:
+        ref = eager()
+        sync_text = "host plan inside: no sync check"
+    else:
         torch.cuda.set_sync_debug_mode("error")  # a host read raises
         try:
             ref = eager()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        eager_same = same_bits(eager(), ref)
-        busy, window, n_k = busy_share(eager, logdir)
-        peak = Peak("cuda").start()
-        num_e = bench(eager, device="cuda", name=label, warmup=2, runs=5,
-                      flops=flops)
-        peak_e = peak.text()
-        peak = Peak("cuda").start()
-        # as bench.py times it: warm-up 1 eager, warm-up 2 captures
-        num_g = bench(public, device="cuda", name=label, warmup=2, runs=5,
-                      flops=flops)
-        peak_g = peak.text()
-        c, got = drive(kernels, dia_kernels, public)
-        launches.update(got)
-        info = graphs.info()
-        if info["captures"] != 1 or len(info["graphs"]) != 1:
-            raise AssertionError(f"{label}: {info}")
-        g = info["graphs"][0]
-        pool = info["pool_bytes"]
-        what = check(c)
-        bit = same_bits(c, ref)
-        busy_g, window_g, n_kg = busy_share(public, logdir)
-        phase(f"{label}: {what}; capture {g['capture_ms']:.1f} ms, "
-              f"{info['captures']} graph, pool {pool / 2**30:.3f} "
-              f"GiB, {g['replays']} replays, launches a replay "
-              f"{g['launches']}; eager {ms_spread(num_e)} = "
-              f"{num_e.gflops_median:.3f} GFlops, replay {ms_spread(num_g)} "
-              f"= {num_g.gflops_median:.3f} GFlops, x"
-              f"{num_e.median_s / num_g.median_s:.2f}; replay bit-equal to "
-              f"eager: {bit} (eager to eager: {eager_same}); eager busy "
-              f"{busy * 1e3:.3f} of {window * 1e3:.3f} ms = "
-              f"{busy / window:.1%} ({n_k} kernels); replay seen by the "
-              f"profiler: {busy_g * 1e3:.3f} of {window_g * 1e3:.3f} ms = "
-              f"{busy_g / window_g:.1%} ({n_kg} kernels); eager "
-              f"{peak_e}; graph {peak_g} [{card}]")
-        if not bit and eager_same:
-            raise AssertionError(f"{label}: the replay differs from the "
-                                 f"eager call, which repeats bit for bit")
+        sync_text = "eager ran under sync debug mode"
+    eager_same = same_bits(eager(), ref)
+    busy, window, n_k = busy_share(eager, logdir)
+    peak = Peak("cuda").start()
+    num_e = bench(eager, device="cuda", name=label, warmup=2, runs=5,
+                  flops=flops)
+    peak_e = peak.text()
+    peak = Peak("cuda").start()
+    # as bench.py times it: warm-up 1 eager, warm-up 2 captures
+    num_g = bench(public, device="cuda", name=label, warmup=2, runs=5,
+                  flops=flops)
+    peak_g = peak.text()
+    c, got = drive(kernels, dia_kernels, public)
+    launches.update(got)
+    info = graphs.info()
+    gs = info["graphs"]
+    if info["captures"] != n_graphs or len(gs) != n_graphs:
+        raise AssertionError(f"{label}: {info}")
+    pool = info["pool_bytes"]
+    cap_ms = sum(g["capture_ms"] for g in gs)
+    in_b = sum(g["in_bytes"] for g in gs)
+    out_b = sum(g["out_bytes"] for g in gs)
+    per_replay = {k: sum(g["launches"][k] for g in gs) for k in got}
+    what = check(c)
+    bit = same_bits(c, ref)
+    busy_g, window_g, n_kg = busy_share(public, logdir)
+    rate = (f" = {num_e.gflops_median:.3f} GFlops" if flops else "",
+            f" = {num_g.gflops_median:.3f} GFlops" if flops else "")
+    phase(f"{label}: {what}; {sync_text}; {n_graphs} graph(s), capture "
+          f"{cap_ms:.1f} ms, pool {pool / 2**30:.3f} GiB, "
+          f"{min(g['replays'] for g in gs)} replays, launches a call "
+          f"{per_replay}; a replay copies in {in_b / 2**20:.3f} MiB and "
+          f"clones out {out_b / 2**20:.3f} MiB (the bodies' least "
+          f"traffic, inputs read once and outputs written once: "
+          f"{(in_b + out_b) / 2**20:.3f} MiB); eager {ms_spread(num_e)}"
+          f"{rate[0]}, replay {ms_spread(num_g)}{rate[1]}, x"
+          f"{num_e.median_s / num_g.median_s:.2f}; replay bit-equal to "
+          f"eager: {bit} (eager to eager: {eager_same}); eager busy "
+          f"{busy * 1e3:.3f} of {window * 1e3:.3f} ms = "
+          f"{busy / window:.1%} ({n_k} kernels); replay seen by the "
+          f"profiler: {busy_g * 1e3:.3f} of {window_g * 1e3:.3f} ms = "
+          f"{busy_g / window_g:.1%} ({n_kg} kernels); eager "
+          f"{peak_e}; graph {peak_g} [{card}]")
+    if not bit and eager_same:
+        raise AssertionError(f"{label}: the replay differs from the "
+                             f"eager call, which repeats bit for bit")
+    return got
+
+
+def graph_paths(port, kernels, dia_kernels, launches, card: str,
+                amg) -> None:
+    """Phase 19 (module docstring): each GRAPH_PATHS and NEW_GRAPH_PATHS
+    entry eager and replayed, the replay's behaviours, and the refresh
+    beside the ESC graphs. ``amg``: phase 10's (matrix, hierarchies)."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
+
+    row = functools.partial(graph_row, kernels, dia_kernels, launches, card)
+    for name, path, dtype in GRAPH_PATHS:
+        label = f"graphs {name} {path} {str(dtype)[6:]}"
+        public, eager, check, flops = graph_operands(port, name, path, dtype)
+        got = row(label, public, eager, check, flops)
         if path == "tilepack" and got["tile_sort_merge"] != 1:
             raise AssertionError(f"{label}: a replay counted {got}")
-        del c, ref
     graph_behaviours(port, graphs)
+    a_sp, hier = amg
+    a_new_sp = a_sp.copy()
+    a_new_sp.data = (a_new_sp.data * np.float32(1.5)).astype(np.float32)
+    a_new = port.CSR.from_scipy(a_new_sp, device="cuda")
+    for name, path, dtype in NEW_GRAPH_PATHS:
+        label = f"graphs {name} {path} {str(dtype)[6:]}"
+        public, check, flops, n_graphs = new_graph_operands(
+            port, name, path, dtype, hier, a_new, a_new_sp)
+
+        def eager(public=public):
+            with graphs.eager():
+                return public()
+
+        got = row(label, public, eager, check, flops, n_graphs,
+                  host_plan=path == "binned")
+        if path in ("tiled", "binned", "fused") and \
+                got["bin_sort_compress"] <= 0:
+            raise AssertionError(f"{label}: no K2 launch counted: {got}")
+    refresh_beside_esc(port, graphs, hier, a_new, card)
     graphs.clear()
+
+
+# (suite matrix, path, value type) of this slice's planned bodies
+NEW_GRAPH_PATHS = (
+    ("mc2depi_524k", "refresh unsmoothed", torch.float32),
+    ("mc2depi_524k", "refresh smoothed", torch.float32),
+    ("poisson2d_256", "triple", torch.float32),
+    ("poisson2d_256", "aggrap", torch.float32),
+    ("mc2depi_524k", "spadd", torch.float32),
+    ("dense_rows_2k", "bsr", torch.float32),
+    ("dense_rows_2k", "bsr", torch.bfloat16),
+    ("banded_16k", "bsr", torch.float64),
+    ("mc2depi_524k", "tiled", torch.float32),
+    ("powerlaw_medium", "binned", torch.float32),
+    ("powerlaw_medium", "fused", torch.float32),
+    ("poisson2d_256", "ilu0 sweeps", torch.float32),
+)
+
+
+def new_graph_operands(port, name, path, dtype, hier, a_new, a_new_sp):
+    """(public(), check(out) -> text, flops, graphs it captures) of one
+    NEW_GRAPH_PATHS entry on the card. ``hier``/``a_new``: phase 10's
+    mc2depi_524k hierarchies and its A x 1.5."""
+    from benchmark_spgemm_using_csr_tpu_torch.models import amg, ilu0
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        aggrap,
+        binned,
+        bsr,
+        fused,
+        graphs,
+        reuse,
+        spadd,
+        tiled,
+    )
+    from benchmark_spgemm_using_csr_tpu_torch.utils import generators
+    from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
+        assert_csr_equal,
+        spgemm_reference,
+    )
+
+    def csr_check(want, tol):
+        def check(c):
+            got = c.to_scipy().tocsr() if hasattr(c, "blocks") else c
+            assert_csr_equal(got, want, check_explicit_zeros=False, **tol)
+            return (f"nnz={want.nnz} verified against scipy (rtol "
+                    f"{tol['rtol']:g})")
+        return check
+
+    if path.startswith("refresh"):
+        h = hier[path == "refresh smoothed"]
+
+        def check(h2):
+            cur = a_new_sp.astype(np.float64)
+            for li in range(1, len(h.levels)):
+                rr = h.levels[li].r.to_scipy().astype(np.float64)
+                pp = h.levels[li].p.to_scipy().astype(np.float64)
+                cur = (rr @ (cur @ pp)).tocsr()
+                assert_csr_equal(h2.levels[li].a, cur, **RAP_TOL)
+            return (f"{len(h.levels) - 1} coarse levels "
+                    f"{[k for k, _ in h._triple_plans[1:]]} verified against "
+                    f"scipy R·A·P (rtol {RAP_TOL['rtol']:g})")
+
+        return (lambda: amg.numeric_refresh(h, a_new), check, 0,
+                len(h.levels) - 1)
+    s = generators.SUITE[name]()
+    if path in ("triple", "aggrap"):
+        p_sp = amg.aggregation_prolongator(s).astype(np.float32).tocsr()
+        r_sp = p_sp.T.tocsr()
+        r, a, p = (port.CSR.from_scipy(x, device="cuda")
+                   for x in (r_sp, s, p_sp))
+        f64 = [x.astype(np.float64) for x in (r_sp, s, p_sp)]
+        want = (f64[0] @ (f64[1] @ f64[2])).tocsr()
+        if path == "triple":
+            sched = reuse.make_triple_plan(r, a, p)
+            public = lambda: reuse.spgemm_triple(r, a, p, sched)  # noqa: E731
+        else:
+            sched = aggrap.make_aggrap_plan(r, a, p)
+            public = lambda: aggrap.rap_aggregation(a, sched)  # noqa: E731
+        return public, csr_check(want, RAP_TOL), 0, 1
+    if path == "spadd":
+        a = port.CSR.from_scipy(s, device="cuda")
+        at = port.csr_transpose(a)
+        plan = spadd.make_add_plan(a, at)
+        want = (s.astype(np.float64) + s.T.astype(np.float64)).tocsr()
+        return (lambda: spadd.spadd_planned(a, at, plan),
+                csr_check(want, dict(rtol=1e-3, atol=1e-3)), 0, 1)
+    if path == "bsr":
+        from benchmark_spgemm_using_csr_tpu_torch.bench import BSR_BLOCKS
+
+        # bfloat16 operands are blocked in float32, as spgemm_bsr does
+        s_in = port.CSR.from_scipy(s, dtype=dtype, device="cpu").to_scipy()
+        a_b = port.BSR.from_scipy(s_in, BSR_BLOCKS[0], device="cuda")
+        b_b = port.BSR.from_scipy(s_in, BSR_BLOCKS[1], device="cuda")
+        plan = bsr.make_bsr_plan(a_b, b_b)
+        tol = F64_TOL if dtype == torch.float64 else F32_TOL
+        products = int(np.diff(s.indptr)[s.indices].sum())
+        return (lambda: bsr.bsr_spgemm(a_b, b_b, plan),
+                csr_check(spgemm_reference(s_in, s_in), tol),
+                2 * products, 1)
+    a = port.CSR.from_scipy(s, device="cuda")
+    products = int(np.diff(s.indptr)[s.indices].sum())
+    want = spgemm_reference(a, a)
+    if path == "tiled":
+        plan = tiled.make_tiled_plan(a, a)
+        return (lambda: tiled.spgemm_tiled(a, a, plan),
+                csr_check(want, F32_TOL), 2 * products, 1)
+    if path == "fused":
+        plan = fused.make_plan(a, a)
+        return (lambda: fused.spgemm_fused(a, a, plan),
+                csr_check(want, F32_TOL), 2 * products, 1)
+    if path == "binned":
+        plan = fused.make_plan(a, a)  # the same bins, as a count
+        cap = products
+        n = sum(r > 0 for r in plan.bin_rows) + (plan.tail_rows > 0)
+        return (lambda: binned.spgemm_binned_host(a, a, cap),
+                csr_check(want, F32_TOL), 2 * products, n)
+    # the ILU0 sweeps: the planned body on ilu0()'s uploads, held against
+    # the same recurrence in float64 numpy
+    iplan = ilu0.ilu0_plan(s)
+    host = (s.data.astype(np.float64), iplan.dep_l, iplan.dep_u,
+            iplan.dep_mask, iplan.diag_pos, iplan.is_lower,
+            iplan.col_of.astype(np.int64))
+    args = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in host]
+    args[0] = args[0].float()
+    sweeps = ilu0.SweepPlan(10)
+    v0, dl, du, dm, dp, lo, co = host
+    v = v0
+    for _ in range(sweeps.sweeps):
+        t = np.where(dm, v[dl] * v[du], 0).sum(axis=1)
+        v = np.where(lo, (v0 - t) / v[dp][co], v0 - t)
+
+    def check(vals):
+        np.testing.assert_allclose(vals.cpu().numpy(), v, rtol=1e-4,
+                                   atol=1e-5)
+        return (f"{vals.shape[0]} factor entries verified against the "
+                f"sweeps in float64 numpy (rtol 1e-4), max_deps "
+                f"{dl.shape[1]}")
+
+    return (lambda: graphs.run(ilu0._sweep, sweeps, *args), check,
+            0, 1)
+
+
+def refresh_beside_esc(port, graphs, hier, a_new, card) -> None:
+    """mc2depi_524k's unsmoothed refresh (9 coarse levels) interleaved with
+    the four ESC paths of GRAPH_PATHS, four rounds: round 1 runs eager,
+    round 2 captures each key once, rounds 3-4 capture nothing."""
+    from benchmark_spgemm_using_csr_tpu_torch.models import amg
+
+    graphs.clear()
+    calls = []
+    for name, make, run in (
+            ("er_medium", port.make_tilepack_plan, port.spgemm_tilepack),
+            ("powerlaw_medium", port.make_chunked_plan, port.spgemm_chunked),
+            ("circuit_64k", port.make_grouped_plan, port.spgemm_grouped),
+            ("scircuit_256k", port.make_grouped_plan, port.spgemm_grouped)):
+        a = suite_csr(port, name)
+        calls.append(functools.partial(run, a, a, make(a, a)))
+    h = hier[False]
+    levels = len(h.levels) - 1
+    calls.append(lambda: amg.numeric_refresh(h, a_new))
+    seen = []
+    for _ in range(4):
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        seen.append(graphs.info()["captures"])
+    info = graphs.info()
+    want = [0] + [4 + levels] * 3
+    phase(f"graphs: mc2depi_524k's unsmoothed refresh ({levels} coarse "
+          f"levels) interleaved with the four ESC paths, captures after "
+          f"each of 4 rounds {seen} (want {want}); {len(info['graphs'])} "
+          f"graphs cached, {info['graph_bytes'] / 2**30:.3f} GiB of their "
+          f"own inputs and outputs (budget "
+          f"{graphs.MAX_GRAPH_BYTES / 2**30:.0f} GiB), pool "
+          f"{info['pool_bytes'] / 2**30:.3f} GiB, {info['retired']} keys "
+          f"retired [{card}]")
+    if seen != want or info["retired"]:
+        raise AssertionError(f"refresh beside ESC: captures {seen}, {info}")
 
 
 def graph_behaviours(port, graphs) -> None:
@@ -2317,7 +2573,12 @@ def main() -> int:
           f"{held['pool_bytes'] / 2**30:.3f} GiB: "
           + ", ".join(f"{g['fn']} ({g['replays']} replays)"
                       for g in held["graphs"]))
-    solver_paths(port, kernels, dia_kernels, launches, card)
+    amg = solver_paths(port, kernels, dia_kernels, launches, card)
+    held = graphs.info()
+    phase(f"graphs held after phase 10: {len(held['graphs'])} "
+          f"({held['graph_bytes'] / 2**30:.3f} GiB of their own inputs and "
+          f"outputs, {held['retired']} keys retired), pool "
+          f"{held['pool_bytes'] / 2**30:.3f} GiB [{card}]")
     lap("phase 10")
     # 12. bfloat16 through auto; 13. profiles; 14. the roofline shares
     bf16_paths(port, kernels, dia_kernels, launches)
@@ -2335,7 +2596,8 @@ def main() -> int:
     cli_run()
     lap("phases 15 and 11")
     # 19. the planned phases as CUDA graphs against eager
-    graph_paths(port, kernels, dia_kernels, launches, card)
+    graph_paths(port, kernels, dia_kernels, launches, card, amg)
+    del amg
     lap("phase 19")
     # 16. the suite harness
     bench_phase(launches)

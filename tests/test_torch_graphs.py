@@ -1,12 +1,19 @@
-"""The plan-keyed graph cache (``ops/graphs``) and the four planned numeric
-phases routed through it: chunked, grouped, tilepack and SpTRSV.
+"""The plan-keyed graph cache (``ops/graphs``) and the planned numeric
+phases routed through it: chunked, grouped, tilepack and SpTRSV; the
+solver path's structure-reuse product and triple product, aggregation
+R·A·P, SpAdd and the ILU0 sweeps; bsr; tiled, fused, binned's per-bin
+stage (K2 inside each) and the padded ESC.
 
 On the CPU:
 
 - the cache key: the row blocks of the out-of-core path share one key,
   another value dtype, capacity or plan gives another, every plan class
-  hashes; the LRU drops its least recent entry and hands it to the
-  eviction hook; CPU tensors run the eager body and capture nothing;
+  hashes; a BSR and 0-d scalars go through the key and back; the LRU
+  drops its least recent entries, by count or by their sizes, and hands
+  them to the eviction hook; the cache's policy (capture stubbed): an
+  AMG refresh's 9 keys beside 4 ESC keys capture once each, and a cycle
+  over more keys than the byte budget holds captures each key once, not
+  on every call; CPU tensors run the eager body and capture nothing;
 - each eager body reads no value on the host: it runs to the end on fake
   tensors (``FakeTensorMode``), where ``.item()`` and ``nonzero`` raise,
   with the output shapes of the real run.
@@ -18,11 +25,12 @@ jax, so run them there without the repository's conftest):
 
 - a replay is bit-equal to the eager body, and C matches scipy;
 - two calls return distinct storage; new values on the same structure
-  give the new product;
+  give the new product (an AMG refresh of A x 1.5 through every level);
 - the out-of-core grouped blocks make one capture;
 - the cached graphs share one pool, and replays of several graphs in any
   order each give their own eager result;
-- replays add their captured K1 launches to the kernel's counter.
+- replays add their captured K1 and K2 launches to the kernels'
+  counters.
 """
 import dataclasses
 
@@ -32,12 +40,22 @@ import scipy.sparse as sp
 import torch
 
 import benchmark_spgemm_using_csr_tpu_torch as T
+from benchmark_spgemm_using_csr_tpu_torch.models import amg as tamg
+from benchmark_spgemm_using_csr_tpu_torch.models import ilu0 as tilu0
+from benchmark_spgemm_using_csr_tpu_torch.ops import aggrap as tagg
 from benchmark_spgemm_using_csr_tpu_torch.ops import batched as tb
+from benchmark_spgemm_using_csr_tpu_torch.ops import binned as tbin
+from benchmark_spgemm_using_csr_tpu_torch.ops import bsr as tbsr
 from benchmark_spgemm_using_csr_tpu_torch.ops import chunked as tc
+from benchmark_spgemm_using_csr_tpu_torch.ops import esc as tesc
+from benchmark_spgemm_using_csr_tpu_torch.ops import fused as tfused
 from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
 from benchmark_spgemm_using_csr_tpu_torch.ops import grouped as tg
 from benchmark_spgemm_using_csr_tpu_torch.ops import kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import reuse as tr
+from benchmark_spgemm_using_csr_tpu_torch.ops import spadd as tsa
 from benchmark_spgemm_using_csr_tpu_torch.ops import sptrsv as ts
+from benchmark_spgemm_using_csr_tpu_torch.ops import tiled as tti
 from benchmark_spgemm_using_csr_tpu_torch.ops import tilepack as tt
 from benchmark_spgemm_using_csr_tpu_torch.ops.symbolic import total_products
 from benchmark_spgemm_using_csr_tpu_torch.utils import generators as tgen
@@ -79,6 +97,50 @@ def block_csr(plan, a, i):
 
 def grouped_args(a, b, s):
     return (a, b, s.slot0, s.first_rank, s.sorted_off, s.fill_end)
+
+
+def rap_operands(device="cpu", k=16, scale=1.0):
+    """(R, A, P) of one aggregation level on a k x k Poisson grid, A's
+    values times ``scale``."""
+    a_sp = tgen.poisson2d(k)
+    p_sp = tamg.aggregation_prolongator(a_sp).astype(np.float32).tocsr()
+    a_sp = (a_sp * np.float32(scale)).astype(np.float32)
+    return tuple(T.CSR.from_scipy(x, device=device)
+                 for x in (p_sp.T.tocsr(), a_sp, p_sp))
+
+
+def bsr_operands(device="cpu", m=256, block=(8, 128)):
+    """(A, B, plan) of bsr on a banded matrix with its diagonal blocks."""
+    s = tgen.banded(m, 24)
+    a = T.BSR.from_scipy(s, block_shape=block, device=device)
+    b = T.BSR.from_scipy(s, block_shape=(block[1], block[1]), device=device)
+    return a, b, tbsr.make_bsr_plan(a, b)
+
+
+def bin_args(a, b, width):
+    """(rows, nnz_ct, prodstart) of binned's bin of ``width``, as
+    ``spgemm_binned_host`` builds them."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops.symbolic import (
+        nnz_upper_bound,
+    )
+
+    nnz_ct = nnz_upper_bound(a, b).long()
+    bins, _ = tbin.make_plan(nnz_ct.cpu().numpy())
+    rows = torch.from_numpy(bins[width]).to(a.device).long()
+    return rows, nnz_ct, torch.cumsum(nnz_ct, 0) - nnz_ct
+
+
+def ilu0_args(a):
+    """The sweeps' tensor arguments on ``a``'s device, as ``ilu0`` uploads
+    them."""
+    a_sp = a.to_scipy()
+    p = tilu0.ilu0_plan(a_sp)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(a.device)
+
+    return (up(a_sp.data), up(p.dep_l), up(p.dep_u), up(p.dep_mask),
+            up(p.diag_pos), up(p.is_lower), up(p.col_of.astype(np.int64)))
 
 
 # ---- the cache key ---------------------------------------------------------
@@ -146,16 +208,33 @@ def test_key_rejects_mixed_devices_and_unknown_arguments():
 def _plans():
     a = power_law()
     sys_a, _ = triangular_system()
+    r, ap, p = rap_operands()
+    ba, bb, bplan = bsr_operands()
+    stencil = T.CSR.from_scipy(tgen.poisson2d(16), device="cpu")
     return {
         "ChunkedPlan": tc.make_chunked_plan(a, a),
         "GroupedPlan": tg.make_grouped_plan(a, a).plan,
         "TilePackPlan": tt.make_tilepack_plan(a, a).plan,
         "TrsvPlan": ts.make_trsv_plan(sys_a).plan,
+        "NumericPlan": tr.make_numeric_plan(a, a).plan,
+        "TriplePlan": tr.make_triple_plan(r, ap, p).plan,
+        "AggRapPlan": tagg.make_aggrap_plan(r, ap, p).plan,
+        "AddPlan": tsa.make_add_plan(a, a),
+        "BsrPlan": bplan,
+        "TiledPlan": tti.make_tiled_plan(stencil, stencil),
+        "SpGemmPlan": tfused.make_plan(a, a),
+        "EscPlan": tesc.EscPlan(1024, 512),
+        "BinPlan": tbin.BinPlan(32),
+        "SweepPlan": tilu0.SweepPlan(10),
     }
 
 
-@pytest.mark.parametrize("name", ["ChunkedPlan", "GroupedPlan",
-                                  "TilePackPlan", "TrsvPlan"])
+PLANS = ["ChunkedPlan", "GroupedPlan", "TilePackPlan", "TrsvPlan",
+         "NumericPlan", "TriplePlan", "AggRapPlan", "AddPlan", "BsrPlan",
+         "TiledPlan", "SpGemmPlan", "EscPlan", "BinPlan", "SweepPlan"]
+
+
+@pytest.mark.parametrize("name", PLANS)
 def test_plans_are_frozen_and_hash_by_value(name):
     plan = _plans()[name]
     assert type(plan).__name__ == name
@@ -177,6 +256,37 @@ def test_describe_and_rebuild_round_trip():
     back = graphs._rebuild(desc, iter(leaves))
     assert back[0].shape == a.shape and back[0].vals is a.vals
     assert back[1][0] is x and back[2] is x
+
+
+@pytest.mark.parametrize("arg", ["bsr", "scalars"])
+def test_describe_and_rebuild_bsr_and_scalars(arg):
+    """A BSR goes through the key as its three buffers and its shape;
+    spadd's 0-d scalars as tensors, whose values are not in the key."""
+    if arg == "bsr":
+        a, b, _ = bsr_operands()
+        args = (a, b)
+        n_leaves = 6
+    else:
+        a = power_law()
+        args = (a, a, torch.full((), 0.5), torch.full((), -2.0))
+        n_leaves = 8
+    leaves = []
+    desc = graphs._describe(args, leaves)
+    hash(desc)
+    assert len(leaves) == n_leaves
+    back = graphs._rebuild(desc, iter(leaves))
+    for x, y in zip(back, args):
+        assert type(x) is type(y)
+        if isinstance(y, T.BSR):
+            assert x.shape == y.shape and x.blocks is y.blocks
+            assert x.rowptr is y.rowptr and x.colidx is y.colidx
+    if arg == "scalars":
+        assert back[2] is args[2] and back[3] is args[3]
+        other = (a, a, torch.full((), 3.0), torch.full((), 4.0))
+        assert graphs._describe(other, []) == desc
+        plan = tsa.make_add_plan(a, a)
+        assert (graphs.cache_key(tsa._spadd, plan, *args)[0]
+                == graphs.cache_key(tsa._spadd, plan, *other)[0])
 
 
 # ---- the LRU ---------------------------------------------------------------
@@ -202,9 +312,87 @@ def test_lru_evicts_least_recent():
     assert len(lru) == 0
 
 
+def test_lru_by_size():
+    gone = []
+    lru = graphs.LRU(10, on_evict=gone.append, size=lambda v: v)
+    lru.put("a", 4)
+    lru.put("b", 5)
+    assert lru.total == 9 and gone == []
+    lru.put("c", 3)  # 12 > 10: "a" leaves
+    assert gone == [4] and lru.total == 8 and "a" not in lru
+    lru.put("d", 20)  # larger than the cap: it stays alone
+    assert gone == [4, 5, 3] and lru.total == 20 and len(lru) == 1
+    lru.clear()
+    assert lru.total == 0 and gone == [4, 5, 3, 20]
+
+
 def test_graph_cache_size_is_small():
-    assert graphs._graphs.cap == graphs.MAX_GRAPHS
-    assert 1 <= graphs.MAX_GRAPHS <= 8
+    """The cache is bounded by its graphs' own bytes (static inputs and
+    outputs), a small share of the card's memory."""
+    assert graphs._graphs.cap == graphs.MAX_GRAPH_BYTES
+    assert 256 << 20 <= graphs.MAX_GRAPH_BYTES <= 8 << 30
+    assert graphs._graphs.size(type("G", (), {"nbytes": 123})()) == 123
+
+
+class FakeGraph:
+    """A stand-in for ``graphs.Graph``: its bytes, and whether it was
+    released."""
+
+    def __init__(self, key, nbytes):
+        self.key, self.nbytes = key, nbytes
+        self.device = key[2]
+        self.pool = (0, 1)
+        self.released = False
+
+    def release(self):
+        self.released = True
+
+
+def cycle(keys, rounds, nbytes):
+    """Call every key of ``keys`` in turn ``rounds`` times through the
+    cache's lookup, capture stubbed; returns (captures, eager calls)."""
+    graphs.clear()
+    made, eager = [], 0
+    for _ in range(rounds):
+        for key in keys:
+            g = graphs._lookup(key, lambda pool, key=key: made.append(
+                FakeGraph(key, nbytes)) or made[-1])
+            eager += g is None
+    assert graphs.captures == len(made)
+    return made, eager
+
+
+def fake_key(i):
+    return ("fn", i, torch.device("cuda", 0), ("tuple",))
+
+
+def test_cache_holds_a_refresh_beside_the_esc_graphs():
+    """9 coarse levels of one refresh and 4 ESC keys, called in a cycle:
+    13 captures, then every call replays."""
+    keys = [fake_key(i) for i in range(13)]
+    made, eager = cycle(keys, 6, 64 << 20)
+    assert len(made) == 13 and eager == 13  # each key's first call
+    assert not any(g.released for g in made)
+    assert len(graphs._graphs) == 13 and len(graphs._retired) == 0
+    graphs.clear()
+    assert all(g.released for g in made) and graphs.captures == 0
+
+
+def test_cache_cycle_past_the_budget_captures_each_key_once():
+    """A cycle over more keys than the budget holds: an evicted key runs
+    eager from then on, and nothing captures again."""
+    fit = 4
+    keys = [fake_key(i) for i in range(fit + 3)]
+    made, eager = cycle(keys, 8, graphs.MAX_GRAPH_BYTES // fit)
+    assert len(made) == len(keys)  # once each, not once per call
+    assert len(graphs._graphs) == fit
+    assert sum(g.released for g in made) == len(keys) - fit
+    assert len(graphs._retired) == len(keys) - fit
+    calls = 8 * len(keys)
+    assert eager == len(keys) + (len(keys) - fit) * 6  # retired: eager
+    assert calls - eager - len(made) > 0  # the ones that stay replay
+    graphs.clear()
+    assert len(graphs._retired) == 0
 
 
 def test_cpu_runs_the_eager_body_and_captures_nothing():
@@ -219,7 +407,8 @@ def test_cpu_runs_the_eager_body_and_captures_nothing():
 
     outs = [graphs.run(body, plan, a, a) for _ in range(3)]
     assert len(calls) == 3
-    assert graphs.info() == {"captures": 0, "pool_bytes": 0, "graphs": []}
+    assert graphs.info() == {"captures": 0, "retired": 0, "pool_bytes": 0,
+                             "graph_bytes": 0, "graphs": []}
     assert len(graphs._seen) == 0
     want = tc._spgemm_chunked(a, a, plan)
     for c in outs:
@@ -256,6 +445,34 @@ def bodies():
         s = ts.make_trsv_plan(sys_a, **kw)
         out.append((f"sptrsv-{label}", ts._solve, s.plan,
                     (sys_a, b, s.stream, s.diag_pos)))
+    ns = tr.make_numeric_plan(a, a)
+    out.append(("reuse-numeric", tr._numeric, ns.plan,
+                (a.vals, a.vals, ns.a_idx, ns.b_idx, ns.lengths)))
+    r, ap, p = rap_operands()
+    trs = tr.make_triple_plan(r, ap, p)
+    out.append(("reuse-triple", tr._triple_numeric, trs.plan,
+                (r.vals, ap.vals, p.vals, trs.idx3, trs.lengths)))
+    ags = tagg.make_aggrap_plan(r, ap, p)
+    out.append(("aggrap", tagg._rap_aggregation, ags.plan,
+                (ap.vals, ags.keys, ags.scale)))
+    at = T.csr_transpose(a)
+    out.append(("spadd", tsa._spadd, tsa.make_add_plan(a, at),
+                (a, at, torch.full((), 0.5), torch.full((), -2.0))))
+    ba, bb, bplan = bsr_operands(block=(16, 16))
+    out.append(("bsr", tbsr._bsr_spgemm, bplan, (ba, bb)))
+    stencil = T.CSR.from_scipy(tgen.poisson2d(16), device="cpu")
+    out.append(("tiled", tti._spgemm_tiled,
+                tti.make_tiled_plan(stencil, stencil), (stencil, stencil)))
+    fplan = tfused.make_plan(a, a, widths=(8, 32))
+    assert fplan.tail_rows  # the tail's ESC runs too
+    out.append(("fused", tfused._spgemm_fused, fplan, (a, a)))
+    for w in (8, 128):
+        out.append((f"binned-w{w}", tbin._bin_numeric, tbin.BinPlan(w),
+                    (a, a, *bin_args(a, a, w))))
+    cap = 1 << 16
+    out.append(("esc", tesc._spgemm_esc, tesc.EscPlan(cap, cap), (a, a)))
+    out.append(("ilu0-sweeps", tilu0._sweep, tilu0.SweepPlan(3),
+                ilu0_args(stencil)))
     return out
 
 
@@ -442,7 +659,7 @@ def test_graphs_share_one_pool_and_interleave():
         paths[n][0]()
         paths[n][0]()
     info = graphs.info()
-    assert info["captures"] == len(names) <= graphs.MAX_GRAPHS
+    assert info["captures"] == len(names)
     assert len({g.graph.pool() for g in graphs._graphs.values()}) == 1
     assert info["pool_bytes"] > 0
     for n in names[::-1] + names[1::2] + names[::2]:
@@ -481,3 +698,150 @@ def test_replay_counts_k1_launches():
     for _ in range(3):
         T.spgemm_tilepack(a, a, s)
     assert kernels.tile_sort_merge.launches == 6
+
+
+def scipy_check(want, tol=F32_TOL):
+    """A check of a CSR or BSR result against the scipy matrix ``want``."""
+    def check(c):
+        got = c.to_scipy().tocsr() if isinstance(c, T.BSR) else c
+        assert_csr_equal(got, want, **tol)
+    return check
+
+
+def new_card_paths(dev="cuda"):
+    """(name, public call, eager call, check, graphs it captures) of this
+    slice's paths on the card; the eager call runs the bodies with the
+    graphs bypassed."""
+    a = power_law(dev, seed=3, m=2000)
+    want = spgemm_reference(a, a)
+    r, ap, p = rap_operands(dev, k=48)
+    rap = (r.to_scipy() @ ap.to_scipy() @ p.to_scipy()).tocsr()
+    ns = tr.make_numeric_plan(a, a)
+    trs = tr.make_triple_plan(r, ap, p)
+    ags = tagg.make_aggrap_plan(r, ap, p)
+    at = T.csr_transpose(a)
+    aplan = tsa.make_add_plan(a, at)
+    add = (0.5 * a.to_scipy() - 2.0 * at.to_scipy()).tocsr()
+    ba, bb, bplan = bsr_operands(dev, m=1024)
+    bwant = (ba.to_scipy() @ bb.to_scipy()).tocsr()
+    st = T.CSR.from_scipy(tgen.poisson2d(64), device=dev)
+    tplan = tti.make_tiled_plan(st, st)
+    fplan = tfused.make_plan(a, a)
+    cap = int(total_products(a, a))
+    f_cpu = tilu0.ilu0(T.CSR.from_scipy(st.to_scipy(), device="cpu"),
+                       sweeps=5)
+
+    def ilu0_check(f):
+        np.testing.assert_allclose(f.to_scipy().toarray(),
+                                   f_cpu.to_scipy().toarray(), rtol=1e-5,
+                                   atol=1e-6)
+
+    calls = {
+        "numeric": (lambda: T.spgemm_numeric(a, a, ns), scipy_check(want),
+                    1),
+        "triple": (lambda: tr.spgemm_triple(r, ap, p, trs),
+                   scipy_check(rap, RAP_TOL), 1),
+        "aggrap": (lambda: tagg.rap_aggregation(ap, ags),
+                   scipy_check(rap, RAP_TOL), 1),
+        "spadd": (lambda: tsa.spadd_planned(a, at, aplan, 0.5, -2.0),
+                  scipy_check(add), 1),
+        "bsr": (lambda: tbsr.bsr_spgemm(ba, bb, bplan), scipy_check(bwant),
+                1),
+        "tiled": (lambda: tti.spgemm_tiled(st, st, tplan),
+                  scipy_check(spgemm_reference(st, st)), 1),
+        "fused": (lambda: tfused.spgemm_fused(a, a, fplan),
+                  scipy_check(want), 1),
+        "binned": (lambda: tbin.spgemm_binned_host(a, a, cap),
+                   scipy_check(want),
+                   sum(x > 0 for x in fplan.bin_rows)
+                   + (fplan.tail_rows > 0)),
+        "esc": (lambda: tesc.spgemm_esc_padded(a, a, cap, cap),
+                scipy_check(want), 1),
+        "ilu0": (lambda: tilu0.ilu0(st, sweeps=5), ilu0_check, 1),
+    }
+
+    def eager(fn):
+        def run():
+            with graphs.eager():
+                return fn()
+        return run
+
+    return {k: (pub, eager(pub), check, n)
+            for k, (pub, check, n) in calls.items()}
+
+
+RAP_TOL = dict(rtol=1e-3, atol=1e-4)
+NEW_PATHS = ["numeric", "triple", "aggrap", "spadd", "bsr", "tiled", "fused",
+             "binned", "esc", "ilu0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", NEW_PATHS)
+def test_new_path_replay_bit_equal_to_eager(path):
+    """The first call runs eager, the second captures (one graph a planned
+    body: binned's bins and its tail's ESC each have one), later calls
+    replay; every result is bit-equal to the eager bodies' and verified
+    against scipy."""
+    need_card()
+    graphs.clear()
+    public, eager, check, n_graphs = new_card_paths()[path]
+    first = public()
+    assert graphs.info()["captures"] == 0
+    second = public()
+    third = public()
+    assert graphs.info()["captures"] == n_graphs
+    assert all(g["replays"] == 2 for g in graphs.info()["graphs"])
+    want = eager()
+    assert graphs.info()["captures"] == n_graphs
+    for got in (first, second, third):
+        if isinstance(got, T.BSR):
+            for f in ("rowptr", "colidx", "blocks"):
+                assert torch.equal(bits(getattr(got, f)),
+                                   bits(getattr(want, f))), f
+        else:
+            assert_bit_equal(got, want)
+        check(got)
+
+
+@pytest.mark.cuda
+def test_refresh_replays_every_level_with_new_values():
+    """An unsmoothed hierarchy's numeric refresh captures one graph a
+    coarse level and no more; A x 1.5 replays them and every level holds
+    against scipy's R·A·P."""
+    need_card()
+    graphs.clear()
+    a_sp = tgen.poisson2d(64)
+    h = tamg.build_hierarchy(a_sp, smooth=False, device="cuda")
+    assert len(h.levels) >= 3
+    graphs.clear()
+    for scale in (1.0, 1.0, 1.5, 1.5, 2.0):
+        a_new_sp = (a_sp * np.float32(scale)).astype(np.float32)
+        h2 = tamg.numeric_refresh(h, T.CSR.from_scipy(a_new_sp,
+                                                      device="cuda"))
+        cur = a_new_sp.astype(np.float64)
+        for li in range(1, len(h.levels)):
+            rr = h.levels[li].r.to_scipy().astype(np.float64)
+            pp = h.levels[li].p.to_scipy().astype(np.float64)
+            cur = (rr @ cur @ pp).tocsr()
+            assert_csr_equal(h2.levels[li].a, cur, **RAP_TOL)
+    assert graphs.info()["captures"] == len(h.levels) - 1
+    assert all(g["replays"] == 4 for g in graphs.info()["graphs"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tiled", "fused"])
+def test_replay_counts_k2_launches(path):
+    need_card()
+    graphs.clear()
+    public, _, _, _ = new_card_paths()[path]
+    kernels.bin_sort_compress.launches = 0
+    public()  # eager
+    per_call = kernels.bin_sort_compress.launches
+    assert per_call >= 1
+    public()  # warm-up + the first replay
+    g = graphs.info()["graphs"][0]
+    assert g["launches"]["bin_sort_compress"] == per_call
+    assert kernels.bin_sort_compress.launches == 3 * per_call
+    for _ in range(3):
+        public()
+    assert kernels.bin_sort_compress.launches == 6 * per_call
