@@ -1,0 +1,7 @@
+"""oneshot_peak_gib: ``peak_gib`` (``metrics/peak_gib.py``) of the one-shot
+cell. Its calls take the host planner's time and its runs spread far
+wider than the steady cells', so its end-to-end metrics carry bounds of
+their own."""
+from spgemm_bench.cells import reader
+
+read = reader("peak_gib")
