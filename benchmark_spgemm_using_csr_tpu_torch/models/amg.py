@@ -22,6 +22,7 @@ from ..api import spgemm
 from ..ops.chunked import _scatter
 from ..ops.spmv import spmv
 from ..sparse.csr import CSR, csr_transpose
+from ..utils import profiling
 
 
 def _device(device) -> torch.device:
@@ -98,30 +99,31 @@ def numeric_refresh(h: "AMGHierarchy", a_new: CSR) -> "AMGHierarchy":
     from ..ops.aggrap import make_aggrap_plan, rap_aggregation
     from ..ops.reuse import make_triple_plan, spgemm_triple
 
-    if not hasattr(h, "_triple_plans"):
-        h._triple_plans = [None] * len(h.levels)
-    levels = [Level(a=a_new, p=None, r=None)]
-    cur = a_new
-    for li in range(1, len(h.levels)):
-        p, r = h.levels[li].p, h.levels[li].r
-        if h._triple_plans[li] is None:
-            asched = make_aggrap_plan(r, cur, p)
-            h._triple_plans[li] = (
-                ("agg", asched) if asched is not None
-                else ("triple", make_triple_plan(r, cur, p))
-            )
-        kind, sched = h._triple_plans[li]
-        if kind == "agg":
-            a_c = rap_aggregation(cur, sched)
-        elif sched is not None:
-            a_c = spgemm_triple(r, cur, p, sched)
-        else:  # triple stream too large: chain the two products
-            a_c = galerkin_product(cur, p, r)
-        levels.append(Level(a=a_c, p=p, r=r))
-        cur = a_c
-    out = AMGHierarchy(levels)
-    out._triple_plans = h._triple_plans
-    return out
+    with profiling.span("amg.refresh"):
+        if not hasattr(h, "_triple_plans"):
+            h._triple_plans = [None] * len(h.levels)
+        levels = [Level(a=a_new, p=None, r=None)]
+        cur = a_new
+        for li in range(1, len(h.levels)):
+            p, r = h.levels[li].p, h.levels[li].r
+            if h._triple_plans[li] is None:
+                asched = make_aggrap_plan(r, cur, p)
+                h._triple_plans[li] = (
+                    ("agg", asched) if asched is not None
+                    else ("triple", make_triple_plan(r, cur, p))
+                )
+            kind, sched = h._triple_plans[li]
+            if kind == "agg":
+                a_c = rap_aggregation(cur, sched)
+            elif sched is not None:
+                a_c = spgemm_triple(r, cur, p, sched)
+            else:  # triple stream too large: chain the two products
+                a_c = galerkin_product(cur, p, r)
+            levels.append(Level(a=a_c, p=p, r=r))
+            cur = a_c
+        out = AMGHierarchy(levels)
+        out._triple_plans = h._triple_plans
+        return out
 
 
 @dataclasses.dataclass

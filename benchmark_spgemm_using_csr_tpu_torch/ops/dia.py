@@ -28,6 +28,7 @@ import torch
 
 from ..sparse.csr import CSR, host_view
 from ..sparse.dia import DIA, dia_offsets_of
+from ..utils import profiling
 from .dia_kernels import dia_spgemm_fused, gather_form
 
 # the reference's block ``bj``: K3's shift span in the reference contract
@@ -64,11 +65,12 @@ def dia_spgemm(a: DIA, b: DIA, fused: bool | None = None) -> DIA:
         raise ValueError(f"inner dims mismatch: {a.shape} @ {b.shape}")
     if fused is None:
         fused = a.device.type == "cuda"
-    if fused:
-        span = (max(0, max(b.offsets, default=0))
-                + max(0, -min(b.offsets, default=0)))
-        return dia_spgemm_fused(a, b, bj=max(K3_BJ, span))
-    return gather_form(a, b)
+    with profiling.span("dia.spgemm"):
+        if fused:
+            span = (max(0, max(b.offsets, default=0))
+                    + max(0, -min(b.offsets, default=0)))
+            return dia_spgemm_fused(a, b, bj=max(K3_BJ, span))
+        return gather_form(a, b)
 
 
 def dia_spmv(a: DIA, x: torch.Tensor) -> torch.Tensor:

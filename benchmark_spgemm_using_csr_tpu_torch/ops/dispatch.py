@@ -16,6 +16,7 @@ import numpy as np
 
 from ..sparse.csr import CSR, IdentityMemo, host_view, sorted_unique
 from ..sparse.dia import dia_offsets_of
+from ..utils import profiling
 
 # measured on a TPU v5e, not yet calibrated for the H100
 CHUNKED_NS_PER_PRODUCT = 9.5
@@ -289,17 +290,23 @@ def choose_method(
     ``plans``, when given, receives the host plans the estimators built
     (key "tilepack"), so the caller need not build them again."""
     b = a if b is None else b
-    *_, products = _stats(a, b)
-    if products == 0:
-        return "chunked"  # degenerate product; every estimate ties at ~0
-    est = {
-        # the reference's order, which decides ties
-        "chunked": estimate_chunked_s(a, b, products),
-        "bsr": estimate_bsr_s(a, b),
-        "dia": estimate_dia_s(a, b),
-        "dense": estimate_dense_s(a, b),
-        "tilepack": estimate_tilepack_s(a, b, plans),
-        "grouped": estimate_grouped_s(a, b),
-        "hash": estimate_hash_s(a, b),
-    }
-    return min(est, key=est.get)
+    with profiling.span("dispatch.choose"):
+        with profiling.span("dispatch.stats"):
+            *_, products = _stats(a, b)
+        if products == 0:
+            return "chunked"  # degenerate product; every estimate ties at ~0
+        estimates = {
+            # the reference's order, which decides ties
+            "chunked": lambda: estimate_chunked_s(a, b, products),
+            "bsr": lambda: estimate_bsr_s(a, b),
+            "dia": lambda: estimate_dia_s(a, b),
+            "dense": lambda: estimate_dense_s(a, b),
+            "tilepack": lambda: estimate_tilepack_s(a, b, plans),
+            "grouped": lambda: estimate_grouped_s(a, b),
+            "hash": lambda: estimate_hash_s(a, b),
+        }
+        est = {}
+        for name, estimate in estimates.items():
+            with profiling.span(f"dispatch.estimate.{name}"):
+                est[name] = estimate()
+        return min(est, key=est.get)

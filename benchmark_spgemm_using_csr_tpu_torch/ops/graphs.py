@@ -64,6 +64,7 @@ import time
 import torch
 
 from ..sparse.csr import BSR, CSR
+from ..utils import profiling
 
 # The static inputs and outputs the cached graphs may hold. One AMG
 # hierarchy's numeric refresh (a graph per coarse level: 9 on
@@ -243,6 +244,8 @@ class Graph:
             self._copy_in(tensors)
             self.graph.replay()
             self.replays += 1
+            profiling.count("graphs.copy_bytes",
+                            self.in_bytes + self.out_bytes)
             for k, w in _counted().items():
                 w.launches += self.launches[k]
             return _rebuild(self.out_desc,
@@ -279,10 +282,14 @@ def run(fn, plan, *args):
     and once its graph has left the cache; a captured graph's replay from
     the second call on (module docstring)."""
     key, tensors = cache_key(fn, plan, *args)
-    if key[2].type != "cuda" or _eager:
-        return fn(*args, plan)
-    graph = _lookup(key, lambda pool: Graph(fn, plan, key, tensors, pool))
-    return fn(*args, plan) if graph is None else graph.replay(tensors)
+    graph = None
+    if key[2].type == "cuda" and not _eager:
+        graph = _lookup(key, lambda pool: Graph(fn, plan, key, tensors, pool))
+    if graph is None:
+        with profiling.span("graphs.eager"):
+            return fn(*args, plan)
+    with profiling.span("graphs.replay"):
+        return graph.replay(tensors)
 
 
 def _lookup(key, capture):
@@ -299,7 +306,8 @@ def _lookup(key, capture):
     _seen.pop(key)
     pool = next((g.pool for g in _graphs.values() if g.device == key[2]),
                 None)
-    graph = capture(pool)
+    with profiling.span("graphs.capture"):
+        graph = capture(pool)
     captures += 1
     _graphs.put(key, graph)
     return graph

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, acc_dtype, host_view
+from ..utils import profiling
 from .chunked import (
     _aligned_table,
     _at_row_starts,
@@ -298,6 +299,8 @@ def make_grouped_plan(
                          cbits, lbits, max_run, scatter_set, nnz_c)
     slot0 = (tile_of * cs + base_chunk).astype(np.int32)
     dev = a.device
+    # four blocking copies to the device
+    profiling.count("host.syncs", 4)
     return GroupedSchedule(
         plan=plan,
         slot0=torch.from_numpy(slot0).to(dev),

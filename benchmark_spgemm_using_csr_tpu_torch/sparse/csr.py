@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 Shape = Tuple[int, int]
 
 INDEX_DTYPE = torch.int32
@@ -115,7 +117,10 @@ def host_view(x) -> np.ndarray:
     hit = _HOST_MIRROR.get((x,))
     if hit is not None:
         return hit
-    v = _to_numpy(x)
+    with profiling.span("host.copy"):
+        profiling.count("host.syncs")
+        v = _to_numpy(x)
+    profiling.count("host.d2h_bytes", v.nbytes)
     _remember_host(x, v)
     return v
 
@@ -318,6 +323,7 @@ class CSR:
 
     def with_capacity(self, capacity: int) -> "CSR":
         """Grow/shrink the padded buffers (one device->host read of nnz)."""
+        profiling.count("host.syncs")
         nnz = int(self.rowptr[-1])
         if capacity < nnz:
             raise ValueError(f"capacity {capacity} < nnz {nnz}")

@@ -1,7 +1,33 @@
-"""Tracing and stage timing (the reference package's ``utils/profiling.py``
-on ``torch.profiler``): a Chrome trace of a block, device time summed by
-kernel name, and a stage timer that pairs with ``utils/roofline``'s stage
-models.
+"""The port's one tracing system: spans and counters recorded inside the
+program, a Chrome trace of a block, and device time summed by kernel.
+
+Spans and counters record only while tracing is on: while a
+``torch.profiler`` records (``torch._C._autograd._profiler_enabled()``:
+true in a profile's active step, false in its warm-up step and after it)
+or inside ``recording()`` (for a caller without a profiler, and tests).
+Off, ``span`` and ``count`` read the two switches and return: no clock,
+no annotation, no allocation. On, a span
+
+- adds its ``time.perf_counter`` duration and one call to the registry;
+- while a profiler records, also opens a
+  ``torch.profiler.record_function`` annotation of its name, so it lies
+  on the profiler's host clock beside the device's intervals (without a
+  profiler nothing reads it, and it costs ~9 us a span on an H100
+  machine's host, against ~1 us for the rest of the span).
+
+A span never synchronises the device: it times what the host spent in
+it, enqueueing included and the device's work after it not.
+``totals()`` gives the registry since the last ``reset()``.
+
+The spans and counters the program records (PERF.md §3 lists them, with
+the metric that reads each): spans ``api.spgemm``, ``api.plan``,
+``dispatch.choose``, ``dispatch.stats``, ``dispatch.estimate.<method>``,
+``host.copy``, ``graphs.eager``, ``graphs.capture``, ``graphs.replay``,
+``dia.spgemm``, ``dia.to_csr``, ``amg.refresh``; counters
+``graphs.copy_bytes`` (bytes a replay copies into its static inputs and
+clones out of its outputs), ``host.d2h_bytes`` (bytes ``host_view`` copies
+to the host) and ``host.syncs`` (the points where the program blocks the
+host on the device: a host copy, a scalar read, a shape-dependent op).
 """
 from __future__ import annotations
 
@@ -10,6 +36,74 @@ import os
 import time
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+# depth of recording() blocks
+_forced = 0
+# name -> (calls, seconds); name -> count
+_spans: dict = {}
+_counters: dict = {}
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "annotation", "t0")
+
+    def __init__(self, name: str, annotate: bool):
+        self.name = name
+        self.annotation = (torch.profiler.record_function(name) if annotate
+                           else None)
+
+    def __enter__(self):
+        if self.annotation is not None:
+            self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        n, total = _spans.get(self.name, (0, 0.0))
+        _spans[self.name] = (n + 1, total + seconds)
+        return False
+
+
+def span(name: str):
+    """A context that records the enclosed block as span ``name`` while
+    tracing is on (module docstring), and a shared no-op context off."""
+    if _profiler_enabled():
+        return _Span(name, annotate=True)
+    return _Span(name, annotate=False) if _forced else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while tracing is on."""
+    if _forced or _profiler_enabled():
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters within the block, profiler or not."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def totals() -> dict:
+    """``{"spans": {name: (calls, seconds)}, "counters": {name: n}}``
+    recorded since the last ``reset()``."""
+    return {"spans": dict(_spans), "counters": dict(_counters)}
+
+
+def reset() -> None:
+    """Forget every recorded span and counter."""
+    _spans.clear()
+    _counters.clear()
 
 
 @contextlib.contextmanager
@@ -53,48 +147,10 @@ def device_time_by_kernel(prof) -> dict[str, float]:
     """Device seconds of a finished profile, summed by kernel (and copy)
     name, largest first (empty when no device activity was recorded). The
     schedule's step marker, which spans its step's kernels, is left out."""
-    totals: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     for evt in prof.key_averages():
         t = evt.device_time_total  # microseconds
         if (t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
                 and not evt.key.startswith("ProfilerStep")):
-            totals[evt.key] = totals.get(evt.key, 0.0) + t * 1e-6
-    return dict(sorted(totals.items(), key=lambda kv: -kv[1]))
-
-
-def _sync(x) -> None:
-    """Wait for the device work behind every tensor in ``x`` (a tensor, or
-    a container or dataclass of them)."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-    elif isinstance(x, (list, tuple)):
-        for y in x:
-            _sync(y)
-    elif isinstance(x, dict):
-        for y in x.values():
-            _sync(y)
-    elif hasattr(x, "__dataclass_fields__"):
-        for name in x.__dataclass_fields__:
-            _sync(getattr(x, name))
-
-
-class StageTimer:
-    """Host-clock stage timer: ``stage(name, holder)`` times its block and,
-    before reading the clock, synchronises the device of the last result in
-    ``holder`` (a list the block appends to), so the time covers the work
-    the block enqueued."""
-
-    def __init__(self):
-        self.stages: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result_holder: list | None = None):
-        t0 = time.perf_counter()
-        yield
-        if result_holder:
-            _sync(result_holder[-1])
-        self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> dict[str, float]:
-        return dict(self.stages)
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + t * 1e-6
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))

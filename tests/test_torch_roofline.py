@@ -237,18 +237,3 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("aten::sort" in e.get("name", "") for e in events)
     assert profiling.device_time_by_kernel(prof) == {}  # no card here
-
-
-def test_stage_timer():
-    timer = profiling.StageTimer()
-    a = _csr(PLAN_MATRICES["er"]())
-    holder = []
-    with timer.stage("numeric", holder):
-        holder.append(T.spgemm(a, a, method="esc"))
-    with timer.stage("numeric", holder):
-        holder.append(T.spgemm(a, a, method="esc"))
-    with timer.stage("empty"):
-        pass
-    rep = timer.report()
-    assert set(rep) == {"numeric", "empty"}
-    assert rep["numeric"] > 0 and rep["empty"] >= 0

@@ -1,0 +1,329 @@
+"""The port's spans and counters (``utils/profiling``) and the benchmark's
+readers of them (``spgemm_bench/metrics``).
+
+On the CPU: the recorder is off unless a profiler records or
+``recording()`` is entered; each span fires where and as often as the
+four benchmark cells' paths reach it; the spans are the profiler's host
+annotations; tracing changes no output. The tests marked ``cuda`` hold
+the counters against the card (the bytes a graph replay copies, the
+syncs ``torch.cuda.set_sync_debug_mode`` reports); run them there
+without the repository's conftest:
+
+    python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -q
+"""
+import json
+import os
+import types
+import warnings
+
+import pytest
+import torch
+
+from benchmark_spgemm_using_csr_tpu_torch import api
+from benchmark_spgemm_using_csr_tpu_torch.models import amg
+from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
+from benchmark_spgemm_using_csr_tpu_torch.ops.dia import dia_spgemm
+from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import CSR, host_view
+from benchmark_spgemm_using_csr_tpu_torch.sparse.dia import DIA
+from benchmark_spgemm_using_csr_tpu_torch.utils import generators, profiling
+from spgemm_bench.cells import reader
+
+torch.set_num_threads(2)
+
+ESTIMATES = ("chunked", "bsr", "dia", "dense", "tilepack", "grouped", "hash")
+# the blocking points of one DIA.to_csr: the offsets' copy to the device
+# and three boolean masks
+TO_CSR_SYNCS = 4
+
+
+@pytest.fixture(autouse=True)
+def fresh_registry():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def _circuit(device="cpu", n=2048):
+    return CSR.from_scipy(generators.circuit(n), device=device)
+
+
+def _auto(device="cpu", n=2048):
+    a = _circuit(device, n)
+    return lambda: api.spgemm(a, a, method="auto")
+
+
+def _dia(device="cpu", grid=24):
+    d = DIA.from_csr(CSR.from_scipy(generators.poisson2d(grid), device=device),
+                     device=device)
+    return lambda: dia_spgemm(d, d).to_csr(prune=True)
+
+
+def _refresh(device="cpu", grid=24, warm=1):
+    """One refresh of a 2-level smoothed hierarchy (the refresh cell's
+    route: the triple plan), after ``warm`` refreshes that build its
+    plans (and on the card capture its graph)."""
+    s = generators.poisson2d(grid)
+    h = amg.build_hierarchy(s, max_levels=2, smooth=True, device=device)
+    a = CSR.from_scipy(s * 1.5, device=device)
+    for _ in range(warm):
+        amg.numeric_refresh(h, a)
+    assert h._triple_plans[1][0] == "triple"
+    return lambda: amg.numeric_refresh(h, a)
+
+
+def _parts(out):
+    if isinstance(out, amg.AMGHierarchy):
+        return [t for lv in out.levels[1:]
+                for t in (lv.a.rowptr, lv.a.colidx, lv.a.vals)]
+    return [out.rowptr, out.colidx, out.vals]
+
+
+# span -> calls for one call of each path on the CPU; counters besides
+EXPECTED = {
+    "auto": ({"api.spgemm": 1, "dispatch.choose": 1, "dispatch.stats": 1,
+              **{f"dispatch.estimate.{m}": 1 for m in ESTIMATES},
+              "api.plan": 1, "graphs.eager": 1},
+             # the trim reads nnz(C) twice; the grouped schedule's four
+             # copies to the device
+             {"host.syncs": 6}),
+    "dia": ({"dia.spgemm": 1, "dia.to_csr": 1},
+            {"host.syncs": TO_CSR_SYNCS}),
+    "refresh": ({"amg.refresh": 1, "graphs.eager": 1}, {}),
+}
+PATHS = {"auto": _auto, "dia": _dia, "refresh": _refresh}
+
+
+def test_off_by_default_records_nothing():
+    _auto()()
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+
+
+def test_off_a_span_is_one_shared_no_op():
+    assert profiling.span("a") is profiling.span("b")
+    with profiling.span("a"):
+        profiling.count("c", 5)
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_each_span_fires_as_often_as_the_path_reaches_it(path):
+    call = PATHS[path]()
+    with profiling.recording():
+        call()
+    got = profiling.totals()
+    spans, counters = EXPECTED[path]
+    assert {k: n for k, (n, _) in got["spans"].items()} == spans
+    assert got["counters"] == counters
+    assert all(s >= 0 for _, s in got["spans"].values())
+
+
+def test_plan_and_choose_are_disjoint_parts_of_the_call():
+    a = _circuit()
+    with profiling.recording():
+        api.spgemm(a, a, method="auto")
+    spans = profiling.totals()["spans"]
+    choose, plan, call = (spans[k][1] for k in
+                          ("dispatch.choose", "api.plan", "api.spgemm"))
+    inner = sum(spans[f"dispatch.estimate.{m}"][1] for m in ESTIMATES)
+    assert inner + spans["dispatch.stats"][1] <= choose
+    assert choose + plan <= call
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_outputs_are_bit_equal_with_tracing_on_and_off(path):
+    call = PATHS[path]()
+    off = _parts(call())
+    with profiling.recording():
+        on = _parts(call())
+    assert len(on) == len(off)
+    for x, y in zip(on, off):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _annotations(tmp_path, call):
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(tmp_path, "trace.json")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            t0 = float(e["ts"])
+            out.setdefault(e["name"], []).append((t0, t0 + float(e["dur"])))
+    return out
+
+
+def test_the_spans_are_the_profilers_host_annotations(tmp_path):
+    ann = _annotations(tmp_path, _auto())
+    assert set(EXPECTED["auto"][0]) <= set(ann)
+    (c0, c1), = ann["dispatch.choose"]
+    (t0, t1), = ann["dispatch.estimate.tilepack"]
+    (p0, p1), = ann["api.plan"]
+    (s0, s1), = ann["api.spgemm"]
+    assert c0 <= t0 <= t1 <= c1
+    assert c1 <= p0 or p1 <= c0
+    assert s0 <= min(c0, p0) and max(c1, p1) <= s1
+    # the profile's records went to the registry too
+    assert profiling.totals()["spans"]["dispatch.choose"][0] == 1
+
+
+def test_only_the_profilers_active_step_records():
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        profiling.count("warm-up")
+        prof.step()
+        profiling.count("active")
+        seen.append(profiling.totals()["counters"])
+        prof.step()
+    profiling.count("after")
+    assert seen == [{"active": 1}]
+    assert profiling.totals()["counters"] == {"active": 1}
+
+
+def test_reset_clears_the_registry_and_graphs_clear_leaves_it():
+    with profiling.recording():
+        with profiling.span("s"):
+            profiling.count("c", 3)
+    graphs.clear()
+    got = profiling.totals()
+    assert got["counters"] == {"c": 3}
+    assert list(got["spans"]) == ["s"] and got["spans"]["s"][0] == 1
+    profiling.reset()
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+
+
+def test_recording_nests_and_ends():
+    with profiling.recording():
+        with profiling.recording():
+            profiling.count("c")
+        profiling.count("c")
+    profiling.count("c")
+    assert profiling.totals()["counters"] == {"c": 2}
+
+
+# each new reader: (what the registry holds, the value for 4 calls)
+READERS = {
+    "oneshot.dispatch.host_ms": ({"spans": {"dispatch.choose": (4, 2.0)}},
+                                 500.0),
+    "oneshot.plan.host_ms": ({"spans": {"api.plan": (4, 0.2)}}, 50.0),
+    "oneshot.host.copy_mb": ({"counters": {"host.d2h_bytes": 36 << 20}},
+                             9.0),
+    "paced.host.syncs": ({"counters": {"host.syncs": 12}}, 3.0),
+    "graphs.copy_mb": ({"counters": {"graphs.copy_bytes": 2200 << 20}},
+                       550.0),
+    "paced.graphs.copy_mb": ({"counters": {"graphs.copy_bytes": 1688 << 20}},
+                             422.0),
+}
+
+
+def _registry(monkeypatch, spans=None, counters=None):
+    held = {"spans": dict(spans or {}), "counters": dict(counters or {})}
+    monkeypatch.setattr(profiling, "totals", lambda: held)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_a_reader_reads_its_span_or_counter_per_call(monkeypatch, name):
+    held, want = READERS[name]
+    _registry(monkeypatch, **held)
+    assert reader(name)(types.SimpleNamespace(calls=4)) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_a_reader_reads_nothing_where_nothing_was_recorded(monkeypatch,
+                                                            name):
+    ctx = types.SimpleNamespace(calls=4)
+    _registry(monkeypatch)
+    assert reader(name)(ctx) is None
+    # a program without the recorder (the port before it had one)
+    monkeypatch.delattr(profiling, "totals")
+    assert reader(name)(ctx) is None
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_a_span_reads_none_and_a_counter_zero_when_others_fired(monkeypatch,
+                                                                name):
+    """A traced window whose calls never reached this span or counter: a
+    counter reads 0 (the refresh blocks the host nowhere), a span None."""
+    _registry(monkeypatch, spans={"other": (1, 1.0)},
+              counters={"other": 1})
+    got = reader(name)(types.SimpleNamespace(calls=4))
+    assert got == (None if name.endswith("host_ms") else 0.0)
+
+
+# -- on the card -----------------------------------------------------------
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+def test_a_replay_adds_the_bytes_it_copies_in_and_clones_out():
+    need_card()
+    from benchmark_spgemm_using_csr_tpu_torch.ops import grouped
+
+    graphs.clear()
+    a = _circuit("cuda", 1 << 14)
+    sched = grouped.make_grouped_plan(a, a)
+    for _ in range(2):  # eager, then the capture (and its replay)
+        grouped.spgemm_grouped(a, a, sched)
+    (g,) = graphs._graphs.values()
+    for k in (1, 2, 3):
+        with profiling.recording():
+            grouped.spgemm_grouped(a, a, sched)
+        torch.cuda.synchronize()
+        assert profiling.totals()["counters"]["graphs.copy_bytes"] == (
+            k * (g.in_bytes + g.out_bytes))
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_a_host_view_miss_counts_its_copy_and_sync():
+    need_card()
+    x = torch.arange(1000, dtype=torch.int32, device="cuda")
+    with profiling.recording():
+        host_view(x)
+        host_view(x)  # the memo's hit: no copy
+    got = profiling.totals()
+    assert got["counters"] == {"host.syncs": 1, "host.d2h_bytes": 4000}
+    assert got["spans"]["host.copy"][0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dia", "refresh", "auto"])
+def test_host_syncs_are_the_syncs_the_card_reports(path):
+    """One call of each path: ``host.syncs`` equals the synchronising
+    operations ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    need_card()
+    graphs.clear()
+    call = {"dia": lambda: _dia("cuda", 256),
+            "refresh": lambda: _refresh("cuda", 128, warm=3),
+            "auto": lambda: _auto("cuda", 1 << 16)}[path]()
+    for _ in range(2):  # builds, plans, and a graph's capture
+        call()
+    torch.cuda.synchronize()
+    profiling.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profiling.recording():
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    reported = sum("called a synchronizing CUDA operation" in str(w.message)
+                   for w in caught)
+    assert profiling.totals()["counters"].get("host.syncs", 0) == reported
+    if path == "dia":
+        assert reported == TO_CSR_SYNCS
+    graphs.clear()
