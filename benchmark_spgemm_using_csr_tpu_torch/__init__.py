@@ -6,7 +6,8 @@ host plan + cost-model dispatch, then one numeric core. The ESC cores
 (chunked / grouped / tilepack, tilepack through the hand-written CUDA
 kernel K1 ``ops/kernels.tile_sort_merge``) carry irregular matrices; the
 DIA path (``sparse/dia.py``, ``ops/dia.py``, kernel K3
-``ops/dia_kernels.dia_spgemm_fused``) carries stencil and banded ones. The
+``ops/dia_kernels.dia_spgemm_fused``, and K4 ``ops/dia_convert.dia_to_csr``
+behind ``DIA.to_csr``) carries stencil and banded ones. The
 tiled, binned and fused paths (kernel K2 ``ops/kernels.bin_sort_compress``)
 are reached by name; the bsr and dense paths (batched dense products) carry
 block-dense and near-dense products, and the hash path and the out-of-core

@@ -51,9 +51,9 @@ what the caller asked for. On CUDA a capture or a replay that fails
 raises; nothing falls back to the eager body.
 
 A replay runs no Python, so the hand-written kernels' launch counters
-(``ops/kernels``, ``ops/dia_kernels``) would not move: each graph records
-at capture how many launches of each kernel it holds, and every replay
-adds them to the counters.
+(``ops/kernels``, ``ops/dia_kernels``, ``ops/dia_convert``) would not
+move: each graph records at capture how many launches of each kernel it
+holds, and every replay adds them to the counters.
 """
 from __future__ import annotations
 
@@ -179,11 +179,12 @@ def cache_key(fn, plan, *args):
 
 def _counted():
     """The hand-written kernels' wrappers, whose ``launches`` count."""
-    from . import dia_kernels, kernels
+    from . import dia_convert, dia_kernels, kernels
 
     return {"tile_sort_merge": kernels.tile_sort_merge,
             "bin_sort_compress": kernels.bin_sort_compress,
-            "dia_spgemm_fused": dia_kernels.dia_spgemm_fused}
+            "dia_spgemm_fused": dia_kernels.dia_spgemm_fused,
+            "dia_to_csr": dia_convert.dia_to_csr}
 
 
 def _nbytes(tensors) -> int:

@@ -7,7 +7,7 @@ sorted tuple of Python ints. Invariant: plane slots outside the matrix (row
 out of range) are exactly 0, so the products never need masks.
 
 The constructors take an explicit ``device``; ``to_csr`` builds the CSR on
-the planes' device.
+the planes' device (kernel K4 for CUDA planes, ``ops/dia_convert``).
 """
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops import dia_convert
 from ..utils import profiling
-from .csr import CSR, INDEX_DTYPE, host_view, pad_bucket, sorted_unique
+from .csr import CSR, host_view, sorted_unique
 
 Shape = Tuple[int, int]
 
@@ -87,46 +88,13 @@ class DIA:
         return sp.dia_matrix((data, np.asarray(self.offsets)), shape=self.shape)
 
     def to_csr(self, prune: bool = True) -> CSR:
-        """CSR on the planes' device. ``prune`` drops slots that hold
-        exactly 0 (DIA planes over-approximate the structure); without it
-        every in-matrix slot is kept."""
+        """CSR on the planes' device (``ops/dia_convert.dia_to_csr``:
+        kernel K4 for CUDA planes, its plain version for CPU ones), at the
+        capacity ``pad_bucket`` of the in-matrix slot count. ``prune``
+        drops slots that hold exactly 0 (DIA planes over-approximate the
+        structure); without it every in-matrix slot is kept."""
         with profiling.span("dia.to_csr"):
-            m, n = self.shape
-            dev = self.device
-            if self.ndiag == 0:
-                return CSR(
-                    rowptr=torch.zeros(m + 1, dtype=INDEX_DTYPE, device=dev),
-                    colidx=torch.zeros(8, dtype=INDEX_DTYPE, device=dev),
-                    vals=torch.zeros(8, dtype=self.dtype, device=dev),
-                    shape=(m, n),
-                )
-            # blocking: the copy of the offsets to the device, then the
-            # three boolean masks
-            profiling.count("host.syncs", 4)
-            offs = torch.tensor(self.offsets, dtype=torch.int64, device=dev)
-            col = torch.arange(n, dtype=torch.int64, device=dev)
-            row = col[None, :] - offs[:, None]
-            keep = (row >= 0) & (row < m)
-            if prune:
-                keep &= self.data != 0
-            # each (row, col) lies on one diagonal: the keys are unique
-            key = row[keep] * n + col.expand(self.ndiag, n)[keep]
-            vals = self.data[keep]
-            key, order = torch.sort(key)
-            vals = vals[order]
-            nnz = key.shape[0]
-            counts = torch.zeros(m + 1, dtype=torch.int64, device=dev)
-            counts.index_add_(0, torch.div(key, n, rounding_mode="floor"),
-                              torch.ones_like(key))
-            rowptr = torch.cat([counts.new_zeros(1),
-                                torch.cumsum(counts[:m], 0)])
-            cap = pad_bucket(nnz)
-            colidx = torch.zeros(cap, dtype=INDEX_DTYPE, device=dev)
-            out_vals = torch.zeros(cap, dtype=self.dtype, device=dev)
-            colidx[:nnz] = (key % n).to(INDEX_DTYPE)
-            out_vals[:nnz] = vals
-            return CSR(rowptr=rowptr.to(INDEX_DTYPE), colidx=colidx,
-                       vals=out_vals, shape=(m, n))
+            return dia_convert.dia_to_csr(self, prune)
 
     @staticmethod
     def from_numpy(data: np.ndarray, offsets, shape, *, device) -> "DIA":

@@ -7,7 +7,8 @@ Phases, each printing one line (or a few):
 1. require ``torch.cuda.is_available()``;
 2. the card's name and power limit, and its max SM clock (nvidia-smi);
 3. build the hand-written kernels K1 (``tile_sort_merge``), K2
-   (``bin_sort_compress``) and K3 (``dia_spgemm_fused``) from
+   (``bin_sort_compress``), K3 (``dia_spgemm_fused``) and K4
+   (``dia_to_csr``) from
    ``benchmark_spgemm_using_csr_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc process each, all at once; then the registers and local memory
    (spills) of every instantiation, as cuobjdump reads them (K3's must
@@ -38,7 +39,14 @@ Phases, each printing one line (or a few):
    gather form that ``dia_spgemm(fused=False)`` runs (its plain version;
    fewer samples where it makes thousands of launches) and the byte
    bound. consph_83k, whose B span passes the reference's 4096, runs K3
-   with ``bj`` widened to its span, as ``dia_spgemm`` does;
+   with ``bj`` widened to its span, as ``dia_spgemm`` does; then K4
+   (``dia_to_csr``) on the C planes K3 makes of each of those matrices
+   (three also in float64): bit-equal to its plain version, the
+   sort-based conversion, pruned and not; timed in batches of 10 and
+   alone (CUDA events, L2 flushed), by the profiler (its three kernels)
+   and beside its byte bound and the sort-based conversion; on
+   mc2depi_524k the whole ``dia_spgemm(A, A).to_csr(prune=True)``, one
+   call at a time, with K4 and with the sort-based one;
 7. the dispatcher's pick on every suite matrix (which it sends to dia);
    the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
@@ -80,7 +88,7 @@ Phases, each printing one line (or a few):
    residual history, the true residual in float64 on the host, the
    V-cycle's median), ILU0 (plan, sweeps, residual on A's pattern) and
    Jacobi-applied ILU0-PCG against plain CG; exact-ILU0 PCG on
-   poisson2d_256. Each with its peak device memory and the K1/K2/K3
+   poisson2d_256. Each with its peak device memory and the K1-K4
    launches of its run;
 11. the CLI, ``python -m benchmark_spgemm_using_csr_tpu_torch
    suite:er_medium --json --runs 3 --roofline`` (its shares must lie in
@@ -115,7 +123,7 @@ Phases, each printing one line (or a few):
    beside the single-chip ``spadd_planned``; the group torn down; then the
    CLI's ``suite:powerlaw_medium --mesh 1 --schedule halo`` (verified, as
    ``dist/halox1``) and ``--mesh`` one past the cards, which must exit
-   non-zero. No kernel of K1-K3 lies on these paths;
+   non-zero. No kernel of K1-K4 lies on these paths;
 16. the suite harness (``benchmark_spgemm_using_csr_tpu_torch/bench.py``)
    in process, 3 timed runs a point, on the 12 suite points no earlier
    phase drives end to end (``BENCH_POINTS``), the rectangular pair and
@@ -168,7 +176,7 @@ Phases, each printing one line (or a few):
    GiB) runs beside the graphs phases 7-9 left cached, and prints them
    and their shared pool before and after.
 
-No kernel of K1-K3 lies on the paths of phases 17 and 18 (the
+No kernel of K1-K4 lies on the paths of phases 17 and 18 (the
 out-of-core blocks run chunked or grouped). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
 launch counts of phases 7-10, 12 and 16 are set to 0 just before each path
 is driven through its entry point and read just after; the kernels line and
@@ -496,7 +504,8 @@ def resource_usage(build) -> None:
     """Registers and local memory (where spills would go) per thread of
     every kernel instantiation, as cuobjdump reads them from the built
     libraries; K3 (whose dynamic shared memory per block each launch plan
-    sets, printed with its timing) must use no local memory."""
+    sets, printed with its timing) and K4's count and fill kernels must
+    use no local memory."""
     for name in ("tile_sort_merge", "bin_sort_compress"):
         usage = []
         for fn, reg, loc in res_usage(build, name):
@@ -513,6 +522,15 @@ def resource_usage(build) -> None:
           + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
     if len(usage) != 18 or any(loc for *_, loc in usage):
         raise AssertionError(f"K3 instantiations: {usage}")
+    k4 = re.compile(r"dia_to_csr_(count|fill)I([fd])Lb([01])E")
+    usage = sorted((m.group(1) + (" double" if m.group(2) == "d" else "")
+                    + (" pruned" if m.group(3) == "1" else ""), reg, loc)
+                   for fn, reg, loc in res_usage(build, "dia_to_csr")
+                   for m in [k4.search(fn)] if m)
+    phase("csrc/dia_to_csr.cu registers (local bytes) per thread: "
+          + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
+    if len(usage) != 8 or any(loc for *_, loc in usage):
+        raise AssertionError(f"K4 instantiations: {usage}")
 
 
 def k3_instance(fn: str) -> str:
@@ -720,21 +738,147 @@ def time_k3(port, dia_kernels, flush) -> dict:
     return out
 
 
+# ---- K4 --------------------------------------------------------------------
+
+
+def compare_k4(dia_convert, c, what: str) -> None:
+    """K4 against its plain version (the sort-based conversion) on the
+    planes ``c``, pruned and not: rowptr, colidx and vals over the whole
+    capacity, bit for bit (it copies values)."""
+    nnz = {}
+    for prune in (True, False):
+        got = dia_convert.dia_to_csr(c, prune)
+        want = dia_convert.dia_to_csr_plain(c, prune)
+        torch.cuda.synchronize()
+        nnz[prune] = int(want.rowptr[-1])
+        for x, y in ((got.rowptr, want.rowptr), (got.colidx, want.colidx),
+                     (got.vals, want.vals)):
+            if x.is_floating_point():
+                view = torch.int64 if x.element_size() == 8 else torch.int32
+                x, y = x.view(view), y.view(view)
+            if not torch.equal(x, y):
+                raise AssertionError(f"K4 is not bit-equal to its plain "
+                                     f"version on {what} (prune={prune})")
+    phase(f"K4 on {what}: nnz {nnz[True]} pruned of {nnz[False]} slots, "
+          f"capacity {got.capacity}, bit-equal pruned and not")
+
+
+def k4_bound(dia_convert, c):
+    """(bound_ms, bound_by, nbytes) of one conversion: every plane read
+    once, rowptr and the capacity's colidx and vals (the zero tail too)
+    written once."""
+    from benchmark_spgemm_using_csr_tpu_torch.utils.roofline import (
+        StageModel,
+    )
+
+    item = c.data.element_size()
+    cap = dia_convert.capacity(c.offsets, c.m, c.n)
+    nbytes = c.ndiag * c.n * item + (c.m + 1) * 4 + cap * (4 + item)
+    return (*bound(StageModel("dia_to_csr", float(nbytes), 0.0)), nbytes)
+
+
+def time_k4(port, dia_convert, flush) -> dict:
+    """K4 on the C planes (K3's output) of every suite member the
+    dispatcher sends to dia (float32; the three of F64_MATRICES also
+    float64), checked against its plain version; timed in batches of 10
+    calls and one call alone (CUDA events, L2 flushed), by the profiler
+    (the sum of its three kernels' device times), beside the byte bound
+    and the plain version, the sort-based conversion the dia path ran
+    before K4. On mc2depi_524k (poisson2d_724) also the whole
+    ``dia_spgemm(A, A).to_csr(prune=True)`` a caller runs, one call at a
+    time (``utils/timing.bench``), with K4 and with the sort-based
+    conversion. Returns mc2depi_524k's numbers."""
+    out = {}
+    for name in DIA_MATRICES:
+        a = port.DIA.from_csr(suite_csr(port, name), device="cuda")
+        span = max(0, max(a.offsets)) + max(0, -min(a.offsets))
+        c = port.dia_spgemm(a, a)
+        kinds = [(c, "")]
+        if name in F64_MATRICES:
+            a64 = port.DIA(a.data.double(), a.offsets, a.shape)
+            kinds.append((port.dia_spgemm(a64, a64), " in float64"))
+        for planes, kind in kinds:
+            what = (f"{name}'s C{kind} (n={planes.n}, {planes.ndiag} "
+                    f"planes, span {span})")
+            compare_k4(dia_convert, planes, what)
+            fn = functools.partial(dia_convert.dia_to_csr, planes, True)
+            plain = functools.partial(dia_convert.dia_to_csr_plain, planes,
+                                      True)
+            ms = cuda_ms(fn, flush=flush, batch=10)
+            alone_ms = cuda_ms(fn, flush=flush)
+            split = {k: profiler_ms(fn, f"dia_to_csr_{k}", flush)
+                     for k in ("count", "scan", "fill")}
+            prof_ms = (None if None in split.values()
+                       else sum(split.values()))
+            plain_ms = cuda_ms(plain, flush=flush)
+            host_ms = host_call_ms(fn)
+            bound_ms, bound_by, nbytes = k4_bound(dia_convert, planes)
+            p = dia_convert.plan(tuple(planes.offsets), planes.m, planes.n,
+                                 planes.data.element_size(), planes.device)
+            prof = ("not recorded" if prof_ms is None else
+                    f"{prof_ms:.4f} ms (count {split['count']:.4f}, scan "
+                    f"{split['scan']:.4f}, fill {split['fill']:.4f}); the "
+                    f"kernels at {bound_ms / prof_ms:.1%} of the bound")
+            phase(f"K4 on {what}: {p.blocks} blocks, window {p.window} "
+                  f"slots; kernel {ms:.4f} ms in batches of 10 "
+                  f"({alone_ms:.4f} alone), device time {prof}; plain = "
+                  f"the sort-based conversion {plain_ms:.4f} ms "
+                  f"({plain_ms / ms:.1f}x); the wrapper's host time "
+                  f"{host_ms * 1e3:.1f} us a call; bound {bound_ms * 1e3:.1f}"
+                  f" us by {bound_by} ({nbytes / 1e6:.1f} MB); CUDA events, "
+                  f"median of 10, L2 flushed")
+            if not kind:
+                out[name] = dict(ms=ms, alone_ms=alone_ms,
+                                 profiler_ms=prof_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+        if name == "mc2depi_524k":
+            from benchmark_spgemm_using_csr_tpu_torch.utils.timing import (
+                bench,
+            )
+
+            calls = {
+                "K4": lambda: port.dia_spgemm(a, a).to_csr(prune=True),
+                "sort-based": lambda: dia_convert.dia_to_csr_plain(
+                    port.dia_spgemm(a, a), True),
+            }
+            med = {}
+            for k in (*calls, *reversed(calls)):  # two rounds, in turns
+                med.setdefault(k, []).append(bench(
+                    calls[k], device="cuda", warmup=20,
+                    runs=300).median_s * 1e3)
+            phase("mc2depi_524k: dia_spgemm(A, A).to_csr(prune=True), "
+                  "median ms of 300 calls (CUDA events around each, "
+                  "synchronised before it), two rounds: " + ", ".join(
+                      f"{k} {ms[0]:.4f} / {ms[1]:.4f}"
+                      for k, ms in med.items()))
+            out[name]["call_ms"] = statistics.median(med["K4"])
+            out[name]["sort_call_ms"] = statistics.median(med["sort-based"])
+        del a, c, kinds
+        torch.cuda.empty_cache()
+    return out["mc2depi_524k"]
+
+
 # ---- the paths ---------------------------------------------------------------
 
 
 def counts(kernels, dia_kernels) -> dict:
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert
+
     return {
         "tile_sort_merge": kernels.tile_sort_merge.launches,
         "bin_sort_compress": kernels.bin_sort_compress.launches,
         "dia_spgemm_fused": dia_kernels.dia_spgemm_fused.launches,
+        "dia_to_csr": dia_convert.dia_to_csr.launches,
     }
 
 
 def reset_counts(kernels, dia_kernels) -> None:
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert
+
     kernels.tile_sort_merge.launches = 0
     kernels.bin_sort_compress.launches = 0
     dia_kernels.dia_spgemm_fused.launches = 0
+    dia_convert.dia_to_csr.launches = 0
 
 
 def numeric_fn(port, a, method):
@@ -1506,7 +1650,7 @@ def solver_paths(port, kernels, dia_kernels, launches, card: str,
                      runs=5).median_s * 1e3
 
     def driven(fn):
-        """fn() with the K1/K2/K3 counts set to 0 just before, read after."""
+        """fn() with the K1-K4 counts set to 0 just before, read after."""
         reset_counts(kernels, dia_kernels)
         out = fn()
         sync(device)
@@ -2528,6 +2672,7 @@ def main() -> int:
     import benchmark_spgemm_using_csr_tpu_torch as port
     from benchmark_spgemm_using_csr_tpu_torch.ops import (
         _build,
+        dia_convert,
         dia_kernels,
         kernels,
     )
@@ -2537,7 +2682,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     CHIP = chip_spec(0)
     phase(f"roofline prices: {CHIP} (utils/roofline, {kind})")
-    # 3. build K1, K2, K3 at once
+    # 3. build K1, K2, K3, K4 at once
     t0 = time.perf_counter()
     for name, secs in _build.build_cuda().items():
         phase(f"built csrc/{name}.cu for sm_90a in {secs:.2f} s")
@@ -2555,6 +2700,7 @@ def main() -> int:
     k3 = dict(k3_all["mc2depi_524k"])
     k3["max_abs_err"] = max([k3_err] + [v["max_abs_err"]
                                         for v in k3_all.values()])
+    k4 = time_k4(port, dia_convert, flush)
     del flush
     lap("phases 1-6")
     # 7-9. the paths; only their launches count
@@ -2585,10 +2731,11 @@ def main() -> int:
     profile_paths(port, os.path.join("_scratch", "traces"))
     roofline_phase(card)
     lap("phases 12-14")
-    # 15. the distributed schedules (no kernel of K1-K3 on their path)
+    # 15. the distributed schedules (no kernel of K1-K4 on their path)
     dist_phase(card)
     phase(f"launches on the paths: {dict(launches)}")
-    for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused"):
+    for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused",
+                 "dia_to_csr"):
         if launches[name] <= 0:
             raise AssertionError(f"the paths never launched {name}")
     cli_ops()
@@ -2613,6 +2760,9 @@ def main() -> int:
                      "ops/pallas_kernels.py:139", launches, k2),
         kernel_entry("dia_spgemm_fused", "dia_spgemm_fused.cu",
                      "ops/dia_pallas.py:57", launches, k3),
+        kernel_entry("dia_to_csr", "dia_to_csr.cu",
+                     "sparse/dia.py:80 (DIA.to_csr, on the host)",
+                     launches, k4),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

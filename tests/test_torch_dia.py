@@ -25,7 +25,7 @@ from benchmark_spgemm_using_csr_tpu.utils import generators as jgen
 
 import benchmark_spgemm_using_csr_tpu_torch as T
 from benchmark_spgemm_using_csr_tpu_torch.ops import dia as tdia
-from benchmark_spgemm_using_csr_tpu_torch.ops import dia_kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert, dia_kernels
 from benchmark_spgemm_using_csr_tpu_torch.ops import dispatch as tdispatch
 
 torch.set_num_threads(2)
@@ -59,6 +59,21 @@ PAIRS = {
                                .astype(np.float32),) * 2,
     "zero": lambda: (sp.csr_matrix((24, 24), dtype=np.float32),) * 2,
 }
+
+
+def same_csr_at_slot_capacity(got, want, planes):
+    """``got`` (``DIA.to_csr`` of ``planes``) holds the reference's CSR
+    ``want``: rowptr equal, colidx and vals equal up to nnz, zero past
+    it, at the capacity ``pad_bucket`` of the planes' in-matrix slots
+    (the reference's is ``pad_bucket(nnz)``)."""
+    nnz = int(want.rowptr[-1])
+    np.testing.assert_array_equal(got.rowptr.numpy(), np.asarray(want.rowptr))
+    np.testing.assert_array_equal(got.colidx[:nnz].numpy(),
+                                  np.asarray(want.colidx)[:nnz])
+    np.testing.assert_allclose(got.vals[:nnz].numpy(),
+                               np.asarray(want.vals)[:nnz], **GATHER_TOL)
+    assert not got.colidx[nnz:].any() and not got.vals[nnz:].any()
+    assert got.capacity == dia_convert.capacity(planes.offsets, *planes.shape)
 
 
 def both_dia(a_sp, b_sp):
@@ -124,11 +139,9 @@ def test_to_csr_matches_reference(name):
     a_sp, b_sp = PAIRS[name]()
     (ja, jb), (ta, tb) = both_dia(a_sp, b_sp)
     want = jdia.dia_spgemm(ja, jb, fused=False).to_csr(prune=True)
-    got = tdia.dia_spgemm(ta, tb).to_csr(prune=True)
-    np.testing.assert_array_equal(got.rowptr.numpy(), np.asarray(want.rowptr))
-    np.testing.assert_array_equal(got.colidx.numpy(), np.asarray(want.colidx))
-    np.testing.assert_allclose(got.vals.numpy(), np.asarray(want.vals),
-                               **GATHER_TOL)
+    c = tdia.dia_spgemm(ta, tb)
+    got = c.to_csr(prune=True)
+    same_csr_at_slot_capacity(got, want, c)
 
 
 def test_round_trips():
@@ -335,10 +348,9 @@ def test_spgemm_dia_same_csr_as_reference(name):
     ja = J.CSR.from_scipy(a_sp)
     want = jdia.spgemm_dia(ja, ja)
     got = T.spgemm_dia(bridge(ja), bridge(ja))
-    np.testing.assert_array_equal(got.rowptr.numpy(), np.asarray(want.rowptr))
-    np.testing.assert_array_equal(got.colidx.numpy(), np.asarray(want.colidx))
-    np.testing.assert_allclose(got.vals.numpy(), np.asarray(want.vals),
-                               **GATHER_TOL)
+    d = T.DIA.from_csr(bridge(ja), device="cpu")
+    same_csr_at_slot_capacity(got, want, tdia.dia_spgemm(d, d))
+    # the facade trims C to pad_bucket(nnz), the reference's capacity
     for method in ("dia", "auto"):
         jc = J.spgemm(ja, ja, method=method)
         tc = T.spgemm(bridge(ja), bridge(ja), method=method)

@@ -1,5 +1,5 @@
-"""Kernels K1 (tile_sort_merge), K2 (bin_sort_compress) and K3
-(dia_spgemm_fused) of the PyTorch port.
+"""Kernels K1 (tile_sort_merge), K2 (bin_sort_compress), K3
+(dia_spgemm_fused) and K4 (dia_to_csr) of the PyTorch port.
 
 The plain PyTorch versions of K1 and K2 are held against the reference's
 Pallas kernels run in interpret mode on the same inputs: keys / columns,
@@ -8,7 +8,9 @@ same addition tree, so in practice bit for bit; the tolerance covers
 -0.0/+0.0 ties). K3's plain version is held against its Pallas kernel in
 tests/test_torch_dia.py. The CUDA kernels are held against the plain
 versions on the card by tests that need a CUDA device and skip without
-one (K3 bit for bit: both sum each plane in one order without FMA); on
+one (K3 bit for bit: both sum each plane in one order without FMA; K4
+bit for bit: it copies values; its plain version is held against the
+reference in tests/test_torch_dia_to_csr.py); on
 the card, where jax is not installed, run them without the repository's
 conftest:
 
@@ -18,7 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark_spgemm_using_csr_tpu_torch.ops import dia, dia_kernels, kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import (
+    dia,
+    dia_convert,
+    dia_kernels,
+    kernels,
+)
 from benchmark_spgemm_using_csr_tpu_torch.sparse.dia import DIA
 from benchmark_spgemm_using_csr_tpu_torch.utils import generators
 
@@ -413,3 +420,119 @@ def test_k3_cuda_empty_operand_and_span_guard():
     assert c.offsets == (0,) and not c.data.any()
     with pytest.raises(ValueError, match="span"):
         dia_kernels.dia_spgemm_fused(a, a, bj=1)
+
+
+# ---- K4: dia_to_csr ----------------------------------------------------------
+
+
+def squared_on_card(mat) -> DIA:
+    """The planes of C = A @ A (K3), as the dia path hands them on."""
+    a = suite_operand(mat)
+    return dia.dia_spgemm(a, a)
+
+
+def with_zeros(d: DIA, seed: int) -> DIA:
+    """A quarter of the slots set to 0.0, another quarter to -0.0, one
+    plane all 0, and rows 1 and 2 holding only zeros."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand(d.data.shape, device="cuda", generator=g)
+    d.data[u < 0.25] = 0.0
+    d.data[(u >= 0.25) & (u < 0.5)] = -0.0
+    d.data[1] = 0
+    for s, off in enumerate(d.offsets):
+        for r in (1, 2):
+            if 0 <= r + off < d.n:
+                d.data[s, r + off] = 0
+    return d
+
+
+K4_CASES = {
+    "poisson2d_724": lambda: squared_on_card(generators.poisson2d(724)),
+    "stencil27_32": lambda: squared_on_card(generators.stencil27(32)),
+    "diagonals_99": lambda: suite_operand(
+        generators.fem(6, dof=3, fill=0.9, seed=5)),
+    "n_below_one_block": lambda: dia_operand(20, (-7, 0, 2), 10),
+    "wide": lambda: dia_operand(430, (-2, 0, 3, 17, 420), 4, m=400),
+    "tall": lambda: dia_operand(300, (-310, -3, 0, 5), 5, m=700),
+    "zeros": lambda: with_zeros(dia_operand(5000, range(-4, 5), 1), 1),
+    "float64": lambda: with_zeros(dia_operand(3000, (-9, 0, 4), 6,
+                                              dtype=np.float64), 2),
+    "float64_three_passes": lambda: dia_operand(
+        4000, range(-32, 33, 2), 14, dtype=np.float64),
+    "unaligned_view": lambda: unaligned_operand(3001, (-5, 0, 1, 40), 12),
+}
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    if x.is_floating_point():
+        view = torch.int64 if x.element_size() == 8 else torch.int32
+        x, y = x.view(view), y.view(view)
+    return x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune", [True, False], ids=["prune", "keep"])
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+def test_k4_cuda_kernel_matches_plain(name, prune):
+    """Bit for bit, at one launch a call: rowptr, colidx and vals over the
+    whole capacity (zero past nnz)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = K4_CASES[name]()
+    before = dia_convert.dia_to_csr.launches
+    got = dia_convert.dia_to_csr(d, prune)
+    want = dia_convert.dia_to_csr_plain(d, prune)
+    torch.cuda.synchronize()
+    assert dia_convert.dia_to_csr.launches == before + 1
+    assert got.capacity == want.capacity
+    for x, y in ((got.rowptr, want.rowptr), (got.colidx, want.colidx),
+                 (got.vals, want.vals)):
+        assert same_bits(x, y)
+
+
+@pytest.mark.cuda
+def test_k4_cuda_calls_nothing_that_synchronises():
+    """After the first call (the build and the plan's one copy of the
+    offsets), ``DIA.to_csr`` on the card neither syncs nor reads back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = squared_on_card(generators.poisson2d(64))
+    d.to_csr(prune=True)
+    torch.cuda.synchronize()
+    before = dia_convert.dia_to_csr.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [d.to_csr(prune=p) for p in (True, False, True)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dia_convert.dia_to_csr.launches == before + 3
+    for c, p in zip(outs, (True, False, True)):
+        want = dia_convert.dia_to_csr_plain(d, p)
+        assert same_bits(c.rowptr, want.rowptr)
+        assert same_bits(c.colidx, want.colidx)
+        assert same_bits(c.vals, want.vals)
+
+
+@pytest.mark.cuda
+def test_k4_cuda_edges_and_what_it_refuses():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = dia_convert.dia_to_csr.launches
+    empty = DIA(torch.zeros((0, 9), device="cuda"), (), (9, 9)).to_csr()
+    assert empty.capacity == 8 and not empty.rowptr.any()
+    assert dia_convert.dia_to_csr.launches == before
+    no_rows = DIA(torch.zeros((2, 9), device="cuda"), (0, 1), (0, 9))
+    got = no_rows.to_csr()
+    assert dia_convert.dia_to_csr.launches == before + 1
+    assert got.rowptr.tolist() == [0] and got.capacity == 8
+    assert not got.colidx.any() and not got.vals.any()
+    d = dia_operand(1000, (-3, 0, 3), 3)
+    wide = torch.zeros((3, 2000), device="cuda")
+    wide[:, ::2] = d.data
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_convert.dia_to_csr(DIA(wide[:, ::2], d.offsets, d.shape))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        dia_convert.dia_to_csr(DIA(d.data.bfloat16(), d.offsets, d.shape))
+    with pytest.raises(ValueError, match="offsets"):
+        dia_convert.dia_to_csr(DIA(d.data[:2], d.offsets, d.shape))
+    assert dia_convert.dia_to_csr.launches == before + 1

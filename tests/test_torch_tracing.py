@@ -31,8 +31,9 @@ from spgemm_bench.cells import reader
 torch.set_num_threads(2)
 
 ESTIMATES = ("chunked", "bsr", "dia", "dense", "tilepack", "grouped", "hash")
-# the blocking points of one DIA.to_csr: the offsets' copy to the device
-# and three boolean masks
+# the blocking points of one DIA.to_csr off the card (its plain version):
+# the offsets' copy to the device and three boolean masks; on the card
+# kernel K4 has none
 TO_CSR_SYNCS = 4
 
 
@@ -302,7 +303,8 @@ def test_a_host_view_miss_counts_its_copy_and_sync():
 @pytest.mark.parametrize("path", ["dia", "refresh", "auto"])
 def test_host_syncs_are_the_syncs_the_card_reports(path):
     """One call of each path: ``host.syncs`` equals the synchronising
-    operations ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    operations ``torch.cuda.set_sync_debug_mode("warn")`` reports; the dia
+    path (K3, then K4's conversion) reports none."""
     need_card()
     graphs.clear()
     call = {"dia": lambda: _dia("cuda", 256),
@@ -325,5 +327,5 @@ def test_host_syncs_are_the_syncs_the_card_reports(path):
                    for w in caught)
     assert profiling.totals()["counters"].get("host.syncs", 0) == reported
     if path == "dia":
-        assert reported == TO_CSR_SYNCS
+        assert reported == 0
     graphs.clear()
