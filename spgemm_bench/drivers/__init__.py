@@ -8,8 +8,6 @@ the window (plans, hierarchies, graphs), and gives the harness:
   the window uses;
 - ``prepare(i)``: call i's input, made outside the call's timer;
 - ``call(x)``: the timed entry into the program; the harness synchronises;
-- ``instrument(spans)``: a context in which the traced run records the
-  benchmark's own spans around the program's layers;
 - ``release()``: drops the program's state once the window has closed;
 - ``outputs(out)``: the CSRs of one output as (rowptr, colidx, vals);
 - ``reference(i, precision)``: the plain reference's CSRs for call i,
@@ -19,8 +17,6 @@ the window (plans, hierarchies, graphs), and gives the harness:
   program takes.
 """
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -91,9 +87,6 @@ class Base:
         nnz = int(self.ref_colidx.shape[0])
         return roofline.csr_product_bound(m, n, nnz, nnz, self.nnz_c,
                                           self.products)
-
-    def instrument(self, spans):
-        return contextlib.nullcontext()
 
     @staticmethod
     def csr_parts(c) -> tuple:

@@ -1,24 +1,24 @@
-"""One-shot products: a caller whose every call brings a structure the
+"""One-shot products: a caller whose every call brings operands the
 program has never seen, through the facade ``api.spgemm(a, a,
 method=<traffic's method>)``.
 
-Call i's operand is P_i·A·P_iᵀ, with P_i a permutation drawn from the seed
-and i and applied on the device outside the call's timer, and the
-(i mod k)-th value set: the products, nnz(C) and the row lengths stay
-those of A, the structure is new. The warm-up is two calls on permutations
-that the window never draws: where the host plan's statics come out the
-same for every permutation, the program's graph cache (``ops/graphs``)
-captures the numeric phase on the second, so the window replays it and
-captures nothing.
+Call i's operand carries the (i mod k)-th value set and is made outside
+the call's timer, in new device tensors every call, so no cache keyed by
+a tensor's identity hits. Its structure is, by the traffic's ``permute``
+(true unless it says otherwise):
 
-In the traced run the benchmark's own span ``resolve_method`` times the
-facade's dispatch and host plan (``api.resolve_method``) inside each call,
-and marks it in the profile, so the device's idle gaps name it.
+- true: P_i·A·P_iᵀ, with P_i a permutation drawn from the seed and i and
+  applied on the device. The products, nnz(C) and the row lengths stay
+  those of A, the structure is new;
+- false: A's own structure, so a stencil keeps its diagonals and the
+  dispatcher's pick is A's own.
+
+The warm-up is two calls at indices the window never reaches: where the
+host plan's statics come out the same every call, the program's graph
+cache (``ops/graphs``) captures the numeric phase on the second, so the
+window replays it and captures nothing.
 """
 from __future__ import annotations
-
-import contextlib
-import time
 
 from . import Base, sync
 from .. import inputs
@@ -35,17 +35,20 @@ class Driver(Base):
             self.call(self.prepare(i))
         sync(self.device)
 
-    def _permuted(self, i: int):
+    def _arrays(self, i: int):
+        """(rowptr, colidx, vals) of call i's operand (module docstring)."""
         nnz = self.ref_colidx.shape[0]
-        return inputs.permute(self.ref_rowptr, self.ref_colidx,
-                              self.vals[i % self.k, :nnz], self.host[3][0],
-                              self.seed, i)
+        vals = self.vals[i % self.k, :nnz]
+        if not self.traffic.get("permute", True):
+            return self.ref_rowptr, self.ref_colidx, vals
+        return inputs.permute(self.ref_rowptr, self.ref_colidx, vals,
+                              self.host[3][0], self.seed, i)
 
     def prepare(self, i: int):
         import torch
         from benchmark_spgemm_using_csr_tpu_torch.sparse.csr import CSR
 
-        rowptr, colidx, vals = self._permuted(i)
+        rowptr, colidx, vals = self._arrays(i)
         nnz = colidx.shape[0]
         col = torch.zeros(self.capacity, dtype=torch.int32,
                           device=self.device)
@@ -60,31 +63,6 @@ class Driver(Base):
 
         return api.spgemm(x, x, method=self.method)
 
-    @contextlib.contextmanager
-    def instrument(self, spans):
-        """Time ``api.resolve_method`` on the host clock, into
-        ``spans["resolve_method"]``, under a profiler annotation of that
-        name."""
-        import torch
-        from benchmark_spgemm_using_csr_tpu_torch import api
-
-        inner = api.resolve_method
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                with torch.profiler.record_function("api.resolve_method"):
-                    return inner(*args, **kwargs)
-            finally:
-                spans.setdefault("resolve_method", []).append(
-                    time.perf_counter() - t0)
-
-        api.resolve_method = timed
-        try:
-            yield
-        finally:
-            api.resolve_method = inner
-
     def release(self) -> None:
         from benchmark_spgemm_using_csr_tpu_torch.ops import graphs
 
@@ -94,7 +72,7 @@ class Driver(Base):
         return [self.csr_parts(out)]
 
     def reference(self, i: int, precision: str = "float64") -> list:
-        rowptr, colidx, vals = self._permuted(i)
+        rowptr, colidx, vals = self._arrays(i)
         a = sparse.from_arrays(rowptr, colidx, vals, self.host[3],
                                self.device)
         c, self.products = sparse.spgemm(a, a, precision)

@@ -13,6 +13,10 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+# the size the benchmark's CPU tests cut a configuration of this generator
+# to (``tests/conftest.make_small_root``)
+SMALL_PARAMS = {"n": 2048, "seed": 0}
+
 
 def generate(n: int, nnz_per_row: float = 3.0, n_hubs: int | None = None,
              hub_deg: int | None = None, seed: int = 0):

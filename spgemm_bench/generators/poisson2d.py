@@ -12,6 +12,10 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+# the size the benchmark's CPU tests cut a configuration of this generator
+# to (``tests/conftest.make_small_root``)
+SMALL_PARAMS = {"k": 24}
+
 
 def generate(k: int):
     n = k * k

@@ -59,7 +59,6 @@ class Context:
     setup_s: float
     work: object  # roofline.Bound of one call
     peak_bytes: int | None  # max_memory_reserved over the run; None off CUDA
-    spans: dict  # the benchmark's own spans: name -> [seconds, ...]
     captures: int  # CUDA graph captures during the window
     profile: object | None  # trace.Profile of a traced run
 
@@ -113,7 +112,6 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
     driver = module.Driver(cell, seed, device)
     driver.setup()
     sample = Sample(int(traffic.get("sample", 3)), seed)
-    spans: dict = {}
     latencies = []
     length = min(seconds, float(traffic["trace_seconds"])) if trace \
         else seconds
@@ -121,7 +119,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
     setup_s = time.time() - START
     profile = None
     if trace:
-        with tracing.profiled(device) as holder, driver.instrument(spans), \
+        with tracing.profiled(device) as holder, \
                 torch.profiler.record_function(tracing.WINDOW):
             window_s = _window(driver, sample, latencies, length, device,
                                traced=True)
@@ -152,7 +150,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         c["value"] <= c["limit"] for c in checks.values())
     ctx = Context(calls=len(latencies), window_s=window_s,
                   latencies_s=latencies, setup_s=setup_s, work=driver.work(),
-                  peak_bytes=peak, spans=spans, captures=captures,
+                  peak_bytes=peak, captures=captures,
                   profile=profile)
     metrics = {}
     for m in cell["per_layer" if trace else "end_to_end"]:

@@ -1,0 +1,6 @@
+"""refresh.host.syncs: ``paced.host.syncs`` (``metrics/paced.host.syncs.py``)
+of the AMG refresh, where it moves the refresh's own end-to-end metric,
+``refresh_gflops``."""
+from spgemm_bench.cells import reader
+
+read = reader("paced.host.syncs")

@@ -30,7 +30,7 @@ def _metric(result: dict, name: str) -> float:
     """The value of ``name``, or of its twin in the cell's class."""
     metrics = result["metrics"]
     for key in (name, "oneshot_" + name, "oneshot." + name, "paced_" + name,
-                "paced." + name):
+                "paced." + name, "refresh_" + name, "refresh." + name):
         if key in metrics:
             return metrics[key]["value"]
     raise KeyError(name)

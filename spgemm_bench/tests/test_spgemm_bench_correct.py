@@ -168,3 +168,42 @@ def test_every_planned_path_of_the_reuse_driver_is_right(small_root, method):
         out = d.outputs(fn(d.prepare(i)))[0]
         r = compare.compare(*out, d.reference(i)[0])
         assert r["struct_mismatch"] == 0 and r["val_err"] < 1e-5
+
+
+def test_the_oneshot_driver_keeps_the_structure_in_new_tensors_unpermuted(
+        small_root):
+    """With the traffic's ``permute`` false, every call's operand has A's
+    own structure and its value set, in tensors of its own, and its output
+    passes against the reference on the small stencil; the default still
+    permutes (the circuit's one-shot traffic)."""
+    import torch
+
+    from spgemm_bench.drivers import oneshot
+    from spgemm_bench.reference import compare
+
+    d = oneshot.Driver(cells.load("poisson2d_724.oneshot", small_root), SEED,
+                       "cpu")
+    assert d.traffic["permute"] is False
+    d.make_matrix()
+    d.method = d.traffic["method"]
+    rowptr, colidx, _ = d.structure
+    nnz = int(rowptr[-1])
+    held = [rowptr, colidx, d.vals]
+    for i in (0, 1, 9):
+        x = d.prepare(i)
+        assert torch.equal(x.rowptr, rowptr)
+        assert torch.equal(x.colidx[:nnz], colidx[:nnz])
+        assert torch.equal(x.vals[:nnz], d.vals[i % d.k, :nnz])
+        ptrs = {t.data_ptr() for t in held}
+        assert not {t.data_ptr() for t in (x.rowptr, x.colidx, x.vals)} \
+            & ptrs
+        held += [x.rowptr, x.colidx, x.vals]
+        out = d.outputs(d.call(x))[0]
+        r = compare.compare(*out, d.reference(i)[0])
+        assert r["struct_mismatch"] == 0 and r["val_err"] < 1e-5
+    c = oneshot.Driver(cells.load("circuit_262k.oneshot", small_root), SEED,
+                       "cpu")
+    assert "permute" not in c.traffic
+    c.make_matrix()
+    nnz = int(c.structure[0][-1])
+    assert not torch.equal(c.prepare(0).colidx[:nnz], c.structure[1][:nnz])

@@ -1,9 +1,14 @@
 """The benchmark is driven by data: cells, configurations, traffic, limits
 and metrics are found by name, and a cell is added as new files alone."""
+import importlib
 import json
 import os
 import re
+import shutil
+import sys
+import types
 
+import numpy as np
 import pytest
 
 from spgemm_bench import cells, harness
@@ -52,6 +57,22 @@ def test_benchmark_json_keeps_to_the_contract():
                                "program_counter", "host_clock")
         assert set(m.get("workloads", CELLS)) <= set(CELLS)
     assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+@pytest.mark.parametrize("name", sorted({c["name"] for c in BENCH["configs"]}))
+def test_every_configurations_generator_declares_its_small_size(name):
+    """Each configuration's generator module has ``generate`` and the
+    CPU-test size ``SMALL_PARAMS``, with which it makes a small matrix."""
+    entry = {c["name"]: c for c in BENCH["configs"]}[name]
+    with open(os.path.join(cells.ROOT, entry["file"])) as f:
+        config = json.load(f)
+    gen = importlib.import_module(
+        f"spgemm_bench.generators.{config['generator']}")
+    assert callable(gen.generate)
+    assert isinstance(gen.SMALL_PARAMS, dict)
+    assert set(gen.SMALL_PARAMS) <= set(config["params"])
+    rowptr, colidx, vals, shape = gen.generate(**gen.SMALL_PARAMS)
+    assert 0 < shape[0] <= 4096 and rowptr[-1] == colidx.size == vals.size
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -120,4 +141,66 @@ def test_a_cell_is_added_as_new_files_alone(tmp_path):
     traced = harness.run(cell, 7, 0.2, True, "cpu")
     assert traced["correct"] and traced["metrics"]["calls_seen"]["value"] > 0
     plain = harness.run(cell, 7, 0.2, False, "cpu")
+    assert plain["correct"] and "gflops" in plain["metrics"]
+
+
+def _banded(n: int, half_width: int):
+    """A generator the package does not have: a band of positive values,
+    as host arrays in canonical CSR order."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(n)
+    offsets = range(-half_width, half_width + 1)
+    mat = sp.diags([1.0 + rng.random(n - abs(o)) for o in offsets],
+                   list(offsets), shape=(n, n), format="csr")
+    mat = mat.astype(np.float32)
+    mat.sort_indices()
+    return mat.indptr, mat.indices, mat.data, (n, n)
+
+
+def test_a_config_with_a_generator_of_its_own_is_added_as_new_files_alone(
+        tmp_path, monkeypatch):
+    """A configuration whose generator module is new (here put in
+    ``sys.modules`` as the file would be found), with its limits and its
+    cell, as new files and entries of a full-size checkout: the small root
+    cuts it, and every other configuration, to its generator's own
+    ``SMALL_PARAMS``, and its cell runs, traced and plain."""
+    from conftest import DATA, make_small_root, small_params
+
+    gen = types.ModuleType("spgemm_bench.generators.banded_test")
+    gen.generate = _banded
+    gen.SMALL_PARAMS = {"n": 300, "half_width": 2}
+    monkeypatch.setitem(sys.modules, gen.__name__, gen)
+    source = tmp_path / "checkout"
+    pkg = source / "spgemm_bench"
+    for d in DATA:
+        shutil.copytree(os.path.join(cells.ROOT, "spgemm_bench", d),
+                        pkg / d)
+    (pkg / "configs" / "banded_big.json").write_text(json.dumps({
+        "name": "banded_big", "generator": "banded_test",
+        "params": {"n": 10**7, "half_width": 2}, "dtype": "float32",
+        "reduced": []}))
+    (pkg / "limits" / "banded_big.reuse.json").write_text(json.dumps(
+        {"struct_mismatch": 0, "val_err": 1e-4}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({
+        "name": "banded_big", "source": "a test",
+        "file": "spgemm_bench/configs/banded_big.json", "reduced": [],
+        "why": "a test"})
+    bench["workloads"].append({
+        "name": "banded_big.reuse", "config": "banded_big",
+        "traffic": "reuse", "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:  # the steady class
+        if "circuit_262k.reuse" in m.get("workloads", []):
+            m["workloads"].append("banded_big.reuse")
+    (source / "BENCHMARK.json").write_text(json.dumps(bench))
+    root = make_small_root(tmp_path / "small", str(source))
+    for w in bench["workloads"]:
+        config = cells.load(w["name"], root)["config_data"]
+        assert config["params"] == small_params(config["generator"])
+    cell = cells.load("banded_big.reuse", root)
+    assert cell["config_data"]["params"] == gen.SMALL_PARAMS
+    traced = harness.run(cell, 2**31 + 9, 0.2, True, "cpu")
+    assert traced["correct"] and "graphs.captures" in traced["metrics"]
+    plain = harness.run(cell, 2**31 + 9, 0.2, False, "cpu")
     assert plain["correct"] and "gflops" in plain["metrics"]
