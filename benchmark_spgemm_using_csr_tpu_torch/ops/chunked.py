@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view, pad_bucket
+from ..utils import profiling
 
 F32 = torch.float32
 # values that ride as float32 bits through the expansion (the reference's
@@ -642,10 +643,15 @@ def merge_products(row, col, val, m: int, n: int, out_cap: int,
 def spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:
     """C = A @ B through the chunked sort-based merge (module docstring);
     on the card one CUDA graph per plan from the second call
-    (``ops/graphs``)."""
+    (``ops/graphs``). Counts the product-stream slots the call expands,
+    sorts and run-sums (``chunked.slots``) and the slots C is sized and
+    compacted at (``chunked.out_slots``), eager or replayed."""
     from . import graphs
 
-    return graphs.run(_spgemm_chunked, plan, a, b)
+    with profiling.span("chunked.spgemm"):
+        profiling.count("chunked.slots", plan.prod_cap)
+        profiling.count("chunked.out_slots", plan.out_cap)
+        return graphs.run(_spgemm_chunked, plan, a, b)
 
 
 def _spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:

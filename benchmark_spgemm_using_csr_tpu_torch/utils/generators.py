@@ -174,10 +174,17 @@ def fem(
 
 
 def fem_irregular(
-    k: int, dof: int = 3, fill: float = 0.7, dtype=np.float32, seed: int = 0
+    k: int, dof: int = 3, fill: float = 0.7, dtype=np.float32, seed: int = 0,
+    window: int | None = None,
 ) -> sp.csr_matrix:
     """FEM matrix from an IRREGULAR mesh ordering: ``fem`` with the node ids
-    randomly permuted before dof expansion.
+    renumbered before dof expansion.
+
+    ``window`` None renumbers the nodes by a uniform random permutation,
+    which keeps no locality. An int keeps it, as a mesher's sweep numbering
+    does: each node's natural id is jittered by up to ``window`` ids and the
+    nodes are ranked by that key, so the bandwidth stays near the natural
+    one plus ``window`` nodes while the column offsets still scatter.
 
     Real cant/consph come from unstructured meshes whose orderings spread
     each row's ~60 nnz over an effectively arbitrary set of column offsets —
@@ -187,13 +194,18 @@ def fem_irregular(
     ~99 distinct scalar diagonals (27 stencil offsets x dof sub-diagonals),
     which the DIA gather form exploits for a ~100x win (round 4 A/B,
     scripts/ab_fem_dia.py) — a legitimate dispatch for THAT matrix, but it
-    vacates the irregular-FEM test regime. This generator restores it: the
-    permutation preserves the row-length distribution and product structure
-    exactly (C_perm = P @ C @ P^T) while destroying diagonal locality."""
+    vacates the irregular-FEM test regime. This generator restores it:
+    either renumbering preserves the row-length distribution and product
+    structure exactly (C_perm = P @ C @ P^T) while scattering the
+    diagonals."""
     base = fem(k, dof=1, fill=fill, dtype=dtype, seed=seed)
     rng = np.random.default_rng(seed + 0x5EED)
     nn = base.shape[0]
-    perm = rng.permutation(nn)
+    if window is None:
+        perm = rng.permutation(nn)
+    else:
+        perm = np.argsort(np.arange(nn) + window * rng.random(nn),
+                          kind="stable")
     base = base[perm][:, perm].tocsr()
     if dof == 1:
         base.sort_indices()

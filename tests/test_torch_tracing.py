@@ -3,10 +3,11 @@ readers of them (``spgemm_bench/metrics``).
 
 On the CPU: the recorder is off unless a profiler records or
 ``recording()`` is entered; each span fires where and as often as the
-four benchmark cells' paths reach it; the spans are the profiler's host
+benchmark cells' paths reach it; the spans are the profiler's host
 annotations; tracing changes no output. The tests marked ``cuda`` hold
 the counters against the card (the bytes a graph replay copies, the
-syncs ``torch.cuda.set_sync_debug_mode`` reports); run them there
+syncs ``torch.cuda.set_sync_debug_mode`` reports, the chunked plan's
+slots a replay counts); run them there
 without the repository's conftest:
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -q
@@ -72,6 +73,23 @@ def _refresh(device="cpu", grid=24, warm=1):
     return lambda: amg.numeric_refresh(h, a)
 
 
+def _fem_plan(device="cpu"):
+    """A small irregular FEM matrix and its chunked plan."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import chunked
+
+    a = CSR.from_scipy(generators.fem_irregular(6, dof=3, fill=0.95,
+                                                seed=15), device=device)
+    return a, chunked.make_chunked_plan(a, a)
+
+
+def _chunked(device="cpu"):
+    """A planned chunked call (fem_81k.reuse's route) on ``_fem_plan``."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import chunked
+
+    a, plan = _fem_plan(device)
+    return lambda: chunked.spgemm_chunked(a, a, plan)
+
+
 def _parts(out):
     if isinstance(out, amg.AMGHierarchy):
         return [t for lv in out.levels[1:]
@@ -79,6 +97,8 @@ def _parts(out):
     return [out.rowptr, out.colidx, out.vals]
 
 
+# ``_fem_plan``'s prod_cap and out_cap
+CHUNKED_SLOTS, CHUNKED_OUT_SLOTS = 2621440, 425984
 # span -> calls for one call of each path on the CPU; counters besides
 EXPECTED = {
     "auto": ({"api.spgemm": 1, "dispatch.choose": 1, "dispatch.stats": 1,
@@ -90,8 +110,12 @@ EXPECTED = {
     "dia": ({"dia.spgemm": 1, "dia.to_csr": 1},
             {"host.syncs": TO_CSR_SYNCS}),
     "refresh": ({"amg.refresh": 1, "graphs.eager": 1}, {}),
+    # the plan's prod_cap and out_cap
+    "chunked": ({"chunked.spgemm": 1, "graphs.eager": 1},
+                {"chunked.slots": CHUNKED_SLOTS,
+                 "chunked.out_slots": CHUNKED_OUT_SLOTS}),
 }
-PATHS = {"auto": _auto, "dia": _dia, "refresh": _refresh}
+PATHS = {"auto": _auto, "dia": _dia, "refresh": _refresh, "chunked": _chunked}
 
 
 def test_off_by_default_records_nothing():
@@ -259,6 +283,63 @@ def test_a_span_reads_none_and_a_counter_zero_when_others_fired(monkeypatch,
     assert got == (None if name.endswith("host_ms") else 0.0)
 
 
+def test_the_chunked_counters_grow_by_the_plan_every_call():
+    _, plan = _fem_plan()
+    assert (plan.prod_cap, plan.out_cap) == (CHUNKED_SLOTS, CHUNKED_OUT_SLOTS)
+    call = _chunked()
+    call()
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+    for k in (1, 2, 3):
+        with profiling.recording():
+            call()
+        got = profiling.totals()
+        assert got["spans"]["chunked.spgemm"][0] == k
+        assert got["counters"] == {"chunked.slots": k * CHUNKED_SLOTS,
+                                   "chunked.out_slots": k * CHUNKED_OUT_SLOTS}
+
+
+# the chunked readers: (counter, its reading for 4 calls, the value);
+# slot_share's work is 3e6 products a call
+CHUNKED_READERS = {
+    "chunked.slot_share": ("chunked.slots", 4 * 4_000_000, 75.0),
+    "chunked.out_slots_m": ("chunked.out_slots", 4 * 2_500_000, 2.5),
+}
+
+
+def _ctx(calls=4):
+    from spgemm_bench.roofline import Bound
+
+    return types.SimpleNamespace(calls=calls,
+                                 work=Bound(bytes_moved=1.0, flops=6e6))
+
+
+@pytest.mark.parametrize("name", sorted(CHUNKED_READERS))
+def test_a_chunked_reader_reads_its_counter_per_call(monkeypatch, name):
+    counter, n, want = CHUNKED_READERS[name]
+    _registry(monkeypatch, counters={counter: n})
+    assert reader(name)(_ctx()) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name", sorted(CHUNKED_READERS))
+def test_a_chunked_reader_reads_nothing_without_its_counter(monkeypatch,
+                                                            name):
+    """None with nothing recorded, with no recorder at all (the port
+    before it had one), where other spans fired but its counter reads 0,
+    and where the window had no calls."""
+    counter, n, _ = CHUNKED_READERS[name]
+    _registry(monkeypatch)
+    assert reader(name)(_ctx()) is None
+    _registry(monkeypatch, spans={"graphs.replay": (4, 1.0)},
+              counters={"graphs.copy_bytes": 1})
+    assert reader(name)(_ctx()) is None
+    _registry(monkeypatch, counters={counter: 0})
+    assert reader(name)(_ctx()) is None
+    _registry(monkeypatch, counters={counter: n})
+    assert reader(name)(_ctx(calls=0)) is None
+    monkeypatch.delattr(profiling, "totals")
+    assert reader(name)(_ctx()) is None
+
+
 # -- on the card -----------------------------------------------------------
 
 
@@ -328,4 +409,25 @@ def test_host_syncs_are_the_syncs_the_card_reports(path):
     assert profiling.totals()["counters"].get("host.syncs", 0) == reported
     if path == "dia":
         assert reported == 0
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_a_chunked_replay_counts_its_plans_slots():
+    need_card()
+    graphs.clear()
+    call = _chunked("cuda")
+    for _ in range(2):  # eager, then the capture (and its replay)
+        call()
+    torch.cuda.synchronize()
+    assert graphs.info()["captures"] == 1
+    for k in (1, 2):
+        with profiling.recording():
+            call()
+        torch.cuda.synchronize()
+        got = profiling.totals()
+        assert {n: c for n, (c, _) in got["spans"].items()} == {
+            "chunked.spgemm": k, "graphs.replay": k}
+        assert got["counters"]["chunked.slots"] == k * CHUNKED_SLOTS
+        assert got["counters"]["chunked.out_slots"] == k * CHUNKED_OUT_SLOTS
     graphs.clear()
