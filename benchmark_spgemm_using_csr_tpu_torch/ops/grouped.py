@@ -49,6 +49,7 @@ from .chunked import (
     pad_gentle,
 )
 from .scancompact import SENTINEL_U32, runsum_compact_scan
+from .symbolic import exact_nnz_c
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +62,7 @@ class GroupedPlan:
     g_cap: int  # padded group count
     abpad_cap: int  # aligned-table capacity in pairs (0 when al == 0)
     out_cap: int  # padded exact nnzC
-    nnz_c: int  # exact nnz(C) (host structural product)
+    nnz_c: int  # exact structural nnz(C) (symbolic.exact_nnz_c)
     cbits: int  # column bits in the packed (local_row, col) key
     lbits: int  # local-row bits (max rows per group fits)
     max_run: int  # run-sum pass bound (max nnz of any A row, padded)
@@ -124,15 +125,16 @@ def make_grouped_plan(
     0 forces narrow; >0 forces that table alignment. Returns None when the
     matrix doesn't fit the regime (empty, values not float32, bfloat16,
     float16 or float64, a
-    key that cannot fit 32 bits, or a structural product too large to
-    count exactly on the host). The schedule's tensors live on a.device.
+    key that cannot fit 32 bits, or more than 2**27 products). The
+    schedule's tensors live on a.device.
 
     fixed: build this matrix's schedule under another plan's statics
     (mode, cs, g_cap, capacities), so that one plan serves several row
     blocks (ops/batched); the statics must cover this matrix (checked).
     force_scatter_set: override the scatter-SET choice.
     nnz_c: the exact nnz(C), where the caller has counted it already
-    (ops/batched); None counts it here by a host structural product.
+    (ops/batched); None counts it here (``symbolic.exact_nnz_c``: kernel
+    K5 on the card, scipy's pattern product on the CPU).
     """
     m, n = a.m, b.n
     if m == 0 or n == 0:
@@ -312,12 +314,10 @@ def make_grouped_plan(
 
 def _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap, cbits, lbits,
               max_run, scatter_set, nnz_c=None) -> GroupedPlan:
-    """The plan's capacities that need the exact nnz(C) (a host structural
-    product, unless given) and the aligned table's size."""
+    """The plan's capacities that need the exact nnz(C) (counted by
+    ``symbolic.exact_nnz_c`` unless given) and the aligned table's size."""
     if nnz_c is None:
-        pat_a = a.to_scipy().astype(bool)
-        pat_b = pat_a if b is a else b.to_scipy().astype(bool)
-        nnz_c = int((pat_a @ pat_b).nnz)
+        nnz_c = exact_nnz_c(a, b)
     abpad_cap = 0
     if al:
         abpad = int((-(-b_len // al) * al).sum())

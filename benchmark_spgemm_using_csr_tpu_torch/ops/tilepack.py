@@ -23,8 +23,8 @@ Pipeline:
 
 Applicability (make_tilepack_plan returns None otherwise): every C row's
 padded product count fits one tile, local-row + column bits fit the int32
-key below the sentinel, and the structural product is small enough to
-count exactly on the host.
+key below the sentinel, and the product stream holds at most 2**27
+products.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view
+from ..utils import profiling
 from .chunked import (
     F32_PACKABLE,
     _aligned_table,
@@ -46,6 +47,7 @@ from .chunked import (
     _shift_compact,
     pad_gentle,
 )
+from .symbolic import exact_nnz_c
 
 F32 = torch.float32
 SENTINEL = 1 << 30
@@ -60,7 +62,7 @@ class TilePackPlan:
     t_cap: int  # padded tile count
     abpad_cap: int  # aligned-B table capacity in pairs (multiple of al)
     out_cap: int  # padded exact nnzC
-    nnz_c: int  # exact nnz(C) (host structural product)
+    nnz_c: int  # exact structural nnz(C) (symbolic.exact_nnz_c)
     cbits: int  # column bits in the packed (local_row, col) key
     scatter_set: bool  # collision-free scatter-SET propagation
     # pow2 >= the actual max rows packed in any tile: the width of the
@@ -95,7 +97,7 @@ def make_tilepack_plan(
     Returns None when the matrix doesn't fit the regime (a row exceeds
     max_w padded products, keys overflow the int32 key, values are not
     float32, bfloat16 or float16 (float64 would lose bits in K1's float32
-    lanes), or the structural product is too large to count exactly).
+    lanes), or more than 2**27 products).
     The schedule's tensors live on a.device."""
     m, n = a.m, b.n
     if m == 0 or n == 0 or a.vals.dtype not in F32_PACKABLE:
@@ -163,10 +165,7 @@ def make_tilepack_plan(
     if lrbits + cbits > 30:  # sentinel is 1 << 30
         return None
 
-    # exact nnzC
-    pat_a = a.to_scipy().astype(bool)
-    pat_b = pat_a if b is a else b.to_scipy().astype(bool)
-    nnz_c = int((pat_a @ pat_b).nnz)
+    nnz_c = exact_nnz_c(a, b)
 
     abpad = int((-(-b_len // al) * al).sum())
     # +al guarantees >= 1 all-sentinel table row past the aligned region:
@@ -190,6 +189,8 @@ def make_tilepack_plan(
         wlr_eff=wlr_eff,
     )
     dev = a.device
+    # three blocking copies to the device
+    profiling.count("host.syncs", 3)
     return TilePackSchedule(
         plan=plan,
         slot0=torch.from_numpy(slot0).to(dev),

@@ -7,8 +7,8 @@ Phases, each printing one line (or a few):
 1. require ``torch.cuda.is_available()``;
 2. the card's name and power limit, and its max SM clock (nvidia-smi);
 3. build the hand-written kernels K1 (``tile_sort_merge``), K2
-   (``bin_sort_compress``), K3 (``dia_spgemm_fused``) and K4
-   (``dia_to_csr``) from
+   (``bin_sort_compress``), K3 (``dia_spgemm_fused``), K4
+   (``dia_to_csr``) and K5 (``symbolic_count``) from
    ``benchmark_spgemm_using_csr_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc process each, all at once; then the registers and local memory
    (spills) of every instantiation, as cuobjdump reads them (K3's must
@@ -46,7 +46,16 @@ Phases, each printing one line (or a few):
    alone (CUDA events, L2 flushed), by the profiler (its three kernels)
    and beside its byte bound and the sort-based conversion; on
    mc2depi_524k the whole ``dia_spgemm(A, A).to_csr(prune=True)``, one
-   call at a time, with K4 and with the sort-based one;
+   call at a time, with K4 and with the sort-based one; then K5
+   (``symbolic.nnz_rows``) against its plain version ``nnz_exact``, row
+   for row, on the CPU tests' synthetic cases and on the benchmark's three
+   matrices at full size (circuit_262k, fem_81k, poisson2d_724,
+   unpermuted): timed in batches of 10 and alone (CUDA events, L2
+   flushed), by the profiler (its three kernels), beside its byte bound,
+   the plain version and scipy's pattern product on the host; the grouped
+   and tilepack plans counted by K5 against those scipy's count builds on
+   the CPU, field for field (``python3 chip_smoke.py k5`` runs phases 1-3
+   and this one alone);
 7. the dispatcher's pick on every suite matrix (which it sends to dia);
    the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
@@ -177,7 +186,8 @@ Phases, each printing one line (or a few):
    and their shared pool before and after.
 
 No kernel of K1-K4 lies on the paths of phases 17 and 18 (the
-out-of-core blocks run chunked or grouped). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
+out-of-core blocks run chunked or grouped; K5 counts a grouped plan's
+nnz(C) where the blocks' own count is not given). The kernel bounds of phases 4-6 come from ``utils/roofline`` too. The
 launch counts of phases 7-10, 12 and 16 are set to 0 just before each path
 is driven through its entry point and read just after; the kernels line and
 the must-launch checks read those counts alone. The comparisons of phases
@@ -531,6 +541,16 @@ def resource_usage(build) -> None:
           + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
     if len(usage) != 8 or any(loc for *_, loc in usage):
         raise AssertionError(f"K4 instantiations: {usage}")
+    k5 = re.compile(r"symbolic_count_(rows|medium|long)(ILb([01])E)?")
+    usage = sorted((m.group(1) + (" shared map" if m.group(3) == "1" else
+                                  " global map" if m.group(3) else ""),
+                    reg, loc)
+                   for fn, reg, loc in res_usage(build, "symbolic_count")
+                   for m in [k5.search(fn)] if m)
+    phase("csrc/symbolic_count.cu registers (local bytes) per thread: "
+          + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
+    if len(usage) != 4 or any(loc for *_, loc in usage):
+        raise AssertionError(f"K5 kernels: {usage}")
 
 
 def k3_instance(fn: str) -> str:
@@ -858,27 +878,164 @@ def time_k4(port, dia_convert, flush) -> dict:
     return out["mc2depi_524k"]
 
 
+# ---- K5 --------------------------------------------------------------------
+
+K5_MATRICES = ("circuit_262k", "fem_81k", "poisson2d_724")
+K5_KERNELS = ("symbolic_count_rows", "symbolic_count_medium",
+              "symbolic_count_long")
+
+
+def bench_matrix(name: str):
+    """The benchmark configuration's matrix (``spgemm_bench/configs``) at
+    full size, unpermuted: (host scipy CSR, the configuration's counts)."""
+    import scipy.sparse as sp
+
+    from spgemm_bench import inputs
+
+    with open(os.path.join("spgemm_bench", "configs", f"{name}.json")) as f:
+        config = json.load(f)
+    rowptr, colidx, vals, shape = inputs.matrix(config)
+    return sp.csr_matrix((vals, colidx, rowptr), shape=shape), config["counts"]
+
+
+def k5_bound(a, b, products: int):
+    """(bound_ms, MB): K5's least traffic at the HBM rate, A's colidx, one
+    B column a product, 8 bytes a row (rowptr and count): 4·nnz_a +
+    4·products + 8·m."""
+    nbytes = 4 * a.nnz + 4 * products + 8 * a.shape[0]
+    return nbytes / CHIP.hbm_bytes_per_s * 1e3, nbytes / 1e6
+
+
+def k5_cases():
+    """``tests/test_torch_nnz_rows``: its cases and helpers."""
+    sys.path.insert(0, "tests")
+    import test_torch_nnz_rows
+
+    return test_torch_nnz_rows
+
+
+def check_k5_synthetic(port) -> None:
+    """K5 against its plain version on the CPU tests' cases
+    (``tests/test_torch_nnz_rows.PAIRS``: the three generators at their
+    CPU size, rectangular, empty rows, every bin and its edges, a bitmap
+    cleared by walk, a bitmap in device memory)."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import symbolic
+
+    cases = k5_cases()
+    for what, make in cases.PAIRS.items():
+        sa, sb = make()
+        got = symbolic.nnz_rows(*cases.csrs(sa, sb, "cuda")).cpu().numpy()
+        want = cases.pattern_counts(sa, sb)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"K5 on {what}: rows differ from the plain "
+                                 f"version at {np.flatnonzero(got != want)[:8]}")
+    phase(f"K5 on {len(cases.PAIRS)} synthetic cases "
+          f"({', '.join(cases.PAIRS)}): every row equal to the plain version")
+
+
+def time_k5(port, flush) -> dict:
+    """K5 on the benchmark's three matrices at full size (A·A, unpermuted):
+    row for row against its plain version and the configuration's nnz(C),
+    timed (batches of 10 and alone, CUDA events, L2 flushed; the profiler's
+    device time of its three kernels), beside its byte bound, the plain
+    version and scipy's pattern product on the host; the grouped and
+    tilepack plans it counts against scipy's on the CPU."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        grouped,
+        symbolic,
+        tilepack,
+    )
+
+    check_k5_synthetic(port)
+    out = {}
+    for name in K5_MATRICES:
+        sa, cfg = bench_matrix(name)
+        a = port.CSR.from_scipy(sa, device="cuda")
+        ca = port.CSR.from_scipy(sa, device="cpu")
+        products = int(cfg["products"])
+        fn = functools.partial(symbolic.nnz_rows, a, a)
+        rows = fn()
+        cap = port.pad_bucket(products)
+        plain = functools.partial(symbolic.nnz_exact, a, a, cap)
+        if not torch.equal(rows, plain()):
+            raise AssertionError(f"K5 on {name}: rows differ from nnz_exact")
+        if int(rows.sum()) != int(cfg["nnz_c"]):
+            raise AssertionError(f"K5 on {name}: nnz(C) {int(rows.sum())} "
+                                 f"against the configuration's {cfg['nnz_c']}")
+        ms = cuda_ms(fn, flush=flush, batch=10)
+        alone_ms = cuda_ms(fn, flush=flush)
+        parts = {k: profiler_ms(fn, k, flush) for k in K5_KERNELS}
+        prof_ms = sum(v for v in parts.values() if v is not None)
+        plain_ms = cuda_ms(plain, reps=3, flush=flush)
+        t0 = time.perf_counter()
+        pat = symbolic._pattern(ca)
+        scipy_nnz = int((pat @ pat).nnz)
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        if scipy_nnz != int(cfg["nnz_c"]):
+            raise AssertionError(f"scipy's count on {name}: {scipy_nnz}")
+        t0 = time.perf_counter()
+        n_c = symbolic.exact_nnz_c(a, a)
+        count_ms = (time.perf_counter() - t0) * 1e3
+        bound_ms, mb = k5_bound(sa, sa, products)
+        p = symbolic.nnz_upper_bound(a, a)
+        bins = [int((p <= 32).sum()), int(((p > 32) & (p <= 1024)).sum()),
+                int((p > 1024).sum())]
+        plans = []
+        for make in (grouped.make_grouped_plan, tilepack.make_tilepack_plan):
+            want = make(ca, ca)
+            before = symbolic.nnz_rows.launches
+            got = make(a, a)
+            if not k5_cases().same_schedule(got, want):
+                raise AssertionError(f"{make.__name__} on {name}: the plan "
+                                     f"K5 counts differs from scipy's")
+            plans.append(f"{make.__name__.split('_')[1]} "
+                         f"{'None' if want is None else want.plan.nnz_c} "
+                         f"({symbolic.nnz_rows.launches - before} K5)")
+        part_text = ", ".join(
+            f"{k.split('_')[-1]} "
+            + ("not recorded" if v is None else f"{v:.4f}")
+            for k, v in parts.items())
+        share = f"{bound_ms / prof_ms:.1%}" if prof_ms else "not measured"
+        phase(f"K5 on {name} (m {sa.shape[0]}, nnz {sa.nnz}, products "
+              f"{products}, nnz(C) {n_c}; rows by bin {bins}): kernel "
+              f"{ms:.4f} ms in batches of 10 ({alone_ms:.4f} alone), device "
+              f"time {prof_ms:.4f} ms (profiler: {part_text}); bound "
+              f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {share} of the device "
+              f"time); plain nnz_exact {plain_ms:.4f} ms; exact_nnz_c "
+              f"{count_ms:.2f} ms host (K5 + the 8-byte read); scipy's "
+              f"pattern product {scipy_ms:.1f} ms host; plans equal to "
+              f"scipy's: {', '.join(plans)}")
+        out[name] = dict(ms=ms, alone_ms=alone_ms, profiler_ms=prof_ms,
+                         bound_ms=bound_ms, plain_ms=plain_ms,
+                         scipy_ms=scipy_ms, count_ms=count_ms)
+        del a, ca, rows
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the paths ---------------------------------------------------------------
 
 
 def counts(kernels, dia_kernels) -> dict:
-    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert, symbolic
 
     return {
         "tile_sort_merge": kernels.tile_sort_merge.launches,
         "bin_sort_compress": kernels.bin_sort_compress.launches,
         "dia_spgemm_fused": dia_kernels.dia_spgemm_fused.launches,
         "dia_to_csr": dia_convert.dia_to_csr.launches,
+        "symbolic_count": symbolic.nnz_rows.launches,
     }
 
 
 def reset_counts(kernels, dia_kernels) -> None:
-    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert, symbolic
 
     kernels.tile_sort_merge.launches = 0
     kernels.bin_sort_compress.launches = 0
     dia_kernels.dia_spgemm_fused.launches = 0
     dia_convert.dia_to_csr.launches = 0
+    symbolic.nnz_rows.launches = 0
 
 
 def numeric_fn(port, a, method):
@@ -2278,7 +2435,9 @@ def graph_row(kernels, dia_kernels, launches, card, label, public, eager,
     cap_ms = sum(g["capture_ms"] for g in gs)
     in_b = sum(g["in_bytes"] for g in gs)
     out_b = sum(g["out_bytes"] for g in gs)
-    per_replay = {k: sum(g["launches"][k] for g in gs) for k in got}
+    # K5 counts a plan's nnz(C) on the host's side of a call: no graph
+    # holds it
+    per_replay = {k: sum(g["launches"].get(k, 0) for g in gs) for k in got}
     what = check(c)
     bit = same_bits(c, ref)
     busy_g, window_g, n_kg = busy_share(public, logdir)
@@ -2690,6 +2849,9 @@ def main() -> int:
     resource_usage(_build)
     rng = np.random.default_rng(0)
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    if sys.argv[1:] == ["k5"]:
+        time_k5(port, flush)
+        return 0
     # 4-6. each kernel against its plain version, and timed
     k1 = time_k1(port, kernels, sm_mhz * 1e6)
     k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(kernels, rng))
@@ -2701,6 +2863,8 @@ def main() -> int:
     k3["max_abs_err"] = max([k3_err] + [v["max_abs_err"]
                                         for v in k3_all.values()])
     k4 = time_k4(port, dia_convert, flush)
+    k5_all = time_k5(port, flush)
+    k5 = dict(k5_all["circuit_262k"], max_abs_err=0)
     del flush
     lap("phases 1-6")
     # 7-9. the paths; only their launches count
@@ -2735,7 +2899,7 @@ def main() -> int:
     dist_phase(card)
     phase(f"launches on the paths: {dict(launches)}")
     for name in ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused",
-                 "dia_to_csr"):
+                 "dia_to_csr", "symbolic_count"):
         if launches[name] <= 0:
             raise AssertionError(f"the paths never launched {name}")
     cli_ops()
@@ -2763,6 +2927,9 @@ def main() -> int:
         kernel_entry("dia_to_csr", "dia_to_csr.cu",
                      "sparse/dia.py:80 (DIA.to_csr, on the host)",
                      launches, k4),
+        kernel_entry("symbolic_count", "symbolic_count.cu",
+                     "ops/grouped.py:322 (scipy's pattern product, on the "
+                     "host)", launches, k5),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

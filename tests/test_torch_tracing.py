@@ -101,9 +101,11 @@ def _parts(out):
 CHUNKED_SLOTS, CHUNKED_OUT_SLOTS = 2621440, 425984
 # span -> calls for one call of each path on the CPU; counters besides
 EXPECTED = {
+    # the grouped plan counts nnz(C) (on the CPU with scipy; tilepack's
+    # estimate refuses the circuit before its count)
     "auto": ({"api.spgemm": 1, "dispatch.choose": 1, "dispatch.stats": 1,
               **{f"dispatch.estimate.{m}": 1 for m in ESTIMATES},
-              "api.plan": 1, "graphs.eager": 1},
+              "api.plan": 1, "plan.nnz_c": 1, "graphs.eager": 1},
              # the trim reads nnz(C) twice; the grouped schedule's four
              # copies to the device
              {"host.syncs": 6}),
@@ -380,17 +382,33 @@ def test_a_host_view_miss_counts_its_copy_and_sync():
     assert got["spans"]["host.copy"][0] == 1
 
 
+def _plan(method, device="cpu"):
+    """One host plan, counting nnz(C): grouped on the circuit, tilepack on
+    the stencil."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import grouped, tilepack
+
+    if method == "grouped":
+        a = _circuit(device, 1 << 14)
+        return lambda: grouped.make_grouped_plan(a, a)
+    a = CSR.from_scipy(generators.poisson2d(128), device=device)
+    return lambda: tilepack.make_tilepack_plan(a, a)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["dia", "refresh", "auto"])
+@pytest.mark.parametrize("path", ["dia", "refresh", "auto", "grouped",
+                                  "tilepack"])
 def test_host_syncs_are_the_syncs_the_card_reports(path):
     """One call of each path: ``host.syncs`` equals the synchronising
     operations ``torch.cuda.set_sync_debug_mode("warn")`` reports; the dia
-    path (K3, then K4's conversion) reports none."""
+    path (K3, then K4's conversion) reports none; a plan, its copies to
+    the device and K5's count read back."""
     need_card()
     graphs.clear()
     call = {"dia": lambda: _dia("cuda", 256),
             "refresh": lambda: _refresh("cuda", 128, warm=3),
-            "auto": lambda: _auto("cuda", 1 << 16)}[path]()
+            "auto": lambda: _auto("cuda", 1 << 16),
+            "grouped": lambda: _plan("grouped", "cuda"),
+            "tilepack": lambda: _plan("tilepack", "cuda")}[path]()
     for _ in range(2):  # builds, plans, and a graph's capture
         call()
     torch.cuda.synchronize()
@@ -431,3 +449,39 @@ def test_a_chunked_replay_counts_its_plans_slots():
         assert got["counters"]["chunked.slots"] == k * CHUNKED_SLOTS
         assert got["counters"]["chunked.out_slots"] == k * CHUNKED_OUT_SLOTS
     graphs.clear()
+
+
+# a plan's blocking points on the card once its operands' host views are
+# held: its copies to the device, and K5's count read back
+PLAN_SYNCS = {"grouped": 4 + 1, "tilepack": 3 + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(PLAN_SYNCS))
+def test_a_plan_on_the_card_counts_nnz_c_with_k5(method):
+    """Each plan built on the card counts nnz(C) once with K5: the span
+    ``plan.nnz_c``, the counter ``plan.nnz_c.device`` and one more
+    ``host.syncs`` (the 8-byte read) than its copies."""
+    need_card()
+    call = _plan(method, "cuda")
+    call()  # the operands' host views
+    for k in (1, 2):
+        with profiling.recording():
+            call()
+        got = profiling.totals()
+        assert got["spans"]["plan.nnz_c"][0] == k
+        assert got["counters"] == {"plan.nnz_c.device": k,
+                                   "host.syncs": k * PLAN_SYNCS[method]}
+
+
+@pytest.mark.parametrize("method", sorted(PLAN_SYNCS))
+def test_a_plan_on_the_cpu_counts_nnz_c_with_scipy(method):
+    """Off the card the count is scipy's: the span fires, K5's counter
+    does not."""
+    call = _plan(method)
+    with profiling.recording():
+        call()
+    got = profiling.totals()
+    assert got["spans"]["plan.nnz_c"][0] == 1
+    assert "plan.nnz_c.device" not in got["counters"]
+    assert got["counters"]["host.syncs"] == PLAN_SYNCS[method] - 1
