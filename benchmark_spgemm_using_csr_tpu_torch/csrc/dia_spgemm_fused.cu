@@ -54,19 +54,6 @@
 
 #include <cstdint>
 
-// Switches for A/B builds only (benchmark_spgemm_using_csr_tpu_torch/
-// tools/k3_ab.py); the defaults build the kernel. K3_PART: 1 stages the
-// rows and skips the sums, 2 skips the rows' copies and sums whatever
-// shared memory holds. K3_MIN_BLOCKS: the staged kernel's blocks per SM
-// asked of the register allocator (__launch_bounds__); at 1, the float64
-// 16-warp instances take 96-104 registers and one block per SM.
-#ifndef K3_PART
-#define K3_PART 0
-#endif
-#ifndef K3_MIN_BLOCKS
-#define K3_MIN_BLOCKS 2
-#endif
-
 namespace {
 
 constexpr int kDirectWarps = 8;  // the direct mode's block: 256 threads
@@ -236,9 +223,11 @@ __device__ __forceinline__ void sum_tile(T* __restrict__ c, const char* rows,
 
 // A block computes one plane group on one tile. Its shared memory holds
 // the staged rows (terms_at bytes), then the group's entry table and its
-// item list; all three are copied at once.
+// item list; all three are copied at once. Two blocks per SM asked of the
+// register allocator: at one, the float64 16-warp instances take 96-104
+// registers and one block per SM.
 template <typename T, int V, int W>
-__global__ void __launch_bounds__(32 * W, K3_MIN_BLOCKS)
+__global__ void __launch_bounds__(32 * W, 2)
     dia_spgemm_kernel_staged(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
     const int* __restrict__ groups, const int4* __restrict__ rows,
@@ -264,7 +253,7 @@ __global__ void __launch_bounds__(32 * W, K3_MIN_BLOCKS)
   // them round by shuffles
   const int nrows = g.nb + g.na;
   T* stage = reinterpret_cast<T*>(smem);
-  for (int r0 = warp; K3_PART != 2 && r0 < nrows; r0 += 32 * W) {
+  for (int r0 = warp; r0 < nrows; r0 += 32 * W) {
     const int mine = r0 + lane * W;
     const int4 own = mine < nrows ? rows[g.row0 + mine] : make_int4(0, 0, 0, 0);
     for (int i = 0; i < 32 && r0 + i * W < nrows; ++i) {
@@ -280,10 +269,8 @@ __global__ void __launch_bounds__(32 * W, K3_MIN_BLOCKS)
   }
   wait_async();
   __syncthreads();
-  if (K3_PART != 1) {
-    sum_tile<T, V, W>(c, smem, entries, items, nitems, g, j0, tile, n, warp,
-                      lane);
-  }
+  sum_tile<T, V, W>(c, smem, entries, items, nitems, g, j0, tile, n, warp,
+                    lane);
 }
 
 template <typename T, int V>

@@ -19,8 +19,8 @@ import scipy.sparse as sp
 import torch
 
 from ..api import spgemm
-from ..ops.chunked import _scatter
 from ..ops.spmv import spmv
+from ..ops.stream import scatter
 from ..sparse.csr import CSR, csr_transpose
 from ..utils import profiling
 
@@ -212,8 +212,8 @@ def diag_of(a: CSR) -> torch.Tensor:
     slot)."""
     row = a.row_ids()
     is_diag = (a.colidx == torch.clamp(row, max=a.m - 1)) & (row < a.m)
-    return _scatter(a.m, torch.where(is_diag, a.colidx, a.m), a.vals,
-                    accumulate=True)
+    return scatter(a.m, torch.where(is_diag, a.colidx, a.m), a.vals,
+                   accumulate=True)
 
 
 def _coarse_solve(h: AMGHierarchy, a: CSR, b):

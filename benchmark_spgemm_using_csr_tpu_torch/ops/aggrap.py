@@ -15,7 +15,7 @@ known at plan time:
   pv[j]`` are plan constants in A's CSR entry order;
 - a call scales A's values, sorts the int64 keys with ``torch.sort``
   carrying the values, and sums and compacts the runs of equal keys
-  (``ops/scancompact.runsum_compact_scan``);
+  (``ops/stream.runsum_compact_scan``);
 - C's rowptr and structure are plan constants: only values are computed,
   as in ops/reuse;
 - on the card a call replays one CUDA graph per plan from the second call
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view
-from .chunked import pad_gentle
+from .stream import pad_gentle, runsum_compact_scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,8 +170,6 @@ def _rap_aggregation(vals, keys, scale, plan: AggRapPlan):
     """The eager body of ``rap_aggregation``: C's (out_cap,) columns and
     values. The constant keys are sorted on every call, as in the
     reference's jit body."""
-    from .scancompact import runsum_compact_scan
-
     buf = torch.zeros(plan.w, dtype=vals.dtype, device=vals.device)
     buf[: plan.nnz_a] = vals[: plan.nnz_a]
     okey, perm = torch.sort(keys)

@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, host_view, pad_bucket
-from .chunked import _shift_compact, make_chunked_plan, spgemm_chunked
+from .chunked import make_chunked_plan, make_dist_local_plan, spgemm_chunked
 from .dense import csr_to_dense, ieee_fp32
+from .stream import pad_gentle, shift_compact
 from .symbolic import total_products
 
 log = logging.getLogger(__name__)
@@ -292,8 +293,6 @@ def make_batched_plan(
             plan.grouped_scheds = ()
             plan.fell_back = True
     if method == "chunked":
-        from ..parallel.dist import make_dist_local_plan
-
         plan.chunked_plan = make_dist_local_plan(
             a, b, n_shards=len(blocks),
             bounds=np.asarray([lo for lo, _ in blocks] + [m], np.int64),
@@ -316,7 +315,6 @@ def _grouped_block_scheds(plan, a, b, rowptrs, colidxs):
     """Per-block grouped schedules under one set of statics: plan every
     block, take the max of each capacity, rebuild every block under it.
     Each block's nnz(C) is the plan's own count (its pattern)."""
-    from .chunked import pad_gentle
     from .grouped import make_grouped_plan
 
     subs = []
@@ -409,7 +407,7 @@ def _dense_block(vals_pad, s0, rows_e, cols_e, db, mode, payload, *,
         return flat
     if mode == "shift":
         kept, disp = (x.to(flat.device, non_blocking=True) for x in payload)
-        return _shift_compact(kept, disp, [flat])[0]
+        return shift_compact(kept, disp, [flat])[0]
     pos = payload.to(flat.device, non_blocking=True)
     guard = torch.cat([flat, flat.new_zeros(1)])
     return guard[torch.clamp(pos, 0, flat.shape[0])]

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, csr_gather_rows, host_view, pad_bucket
-from .chunked import _scatter
-from .esc import gather_products, spgemm_esc_padded
+from .esc import spgemm_esc_padded
+from .stream import gather_products, scatter
 from .symbolic import nnz_upper_bound
 
 DEFAULT_WIDTHS = (8, 32, 128, 512)
@@ -68,9 +68,9 @@ def _bin_numeric(a: CSR, b: CSR, rows, nnz_ct, prodstart, plan: BinPlan):
 
 def _counts_add(counts_full, rows, counts):
     """counts_full[rows] += counts; rows padded with m are dropped."""
-    return counts_full + _scatter(counts_full.shape[0], rows,
-                                  counts.to(counts_full.dtype),
-                                  accumulate=True)
+    return counts_full + scatter(counts_full.shape[0], rows,
+                                 counts.to(counts_full.dtype),
+                                 accumulate=True)
 
 
 def _rowptr_from_counts(counts_full):
@@ -187,10 +187,10 @@ def _assemble(a: CSR, b: CSR, pieces, c_tail, tail_rows, out_capacity: int):
         vals.append(c_tail.vals.to(a.vals.dtype))
     if tgts:
         tgt = torch.cat(tgts)
-        colidx = _scatter(out_capacity, tgt, torch.cat(cols).to(INDEX_DTYPE),
-                          accumulate=False)
-        vals_buf = _scatter(out_capacity, tgt, torch.cat(vals),
-                            accumulate=False)
+        colidx = scatter(out_capacity, tgt, torch.cat(cols).to(INDEX_DTYPE),
+                         accumulate=False)
+        vals_buf = scatter(out_capacity, tgt, torch.cat(vals),
+                           accumulate=False)
     else:
         colidx = torch.zeros(out_capacity, dtype=INDEX_DTYPE, device=dev)
         vals_buf = torch.zeros(out_capacity, dtype=a.vals.dtype, device=dev)

@@ -41,8 +41,8 @@ from ..sparse.csr import (
     row_ids_from_rowptr,
     sorted_unique,
 )
-from .chunked import _ones, _scatter, pad_gentle
 from .dense import ieee_fp32
+from .stream import ones, pad_gentle, scatter
 
 BSR_CHUNK_BYTES = 512 << 20  # gathered B blocks a chunk of pairs may hold
 
@@ -106,7 +106,7 @@ def _bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     per = torch.where(a_brows < mb, (b_rp[1:] - b_rp[:-1])[acol], 0)
     ends = torch.cumsum(per, 0)
     starts = ends - per
-    hits = _scatter(P, starts, _ones(starts), accumulate=True)
+    hits = scatter(P, starts, ones(starts), accumulate=True)
     src = torch.clamp(torch.cumsum(hits, 0) - 1, 0, cap_e - 1)
     pid = torch.arange(P, device=dev)
     pair_valid = pid < ends[-1]
@@ -143,7 +143,7 @@ def _bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
         # run j of the chunk is slot s[0] + j; padding pairs past the last
         # run go to run hi - lo, and every run of theirs to the dump slot
         run = torch.clamp(s - s[0], max=hi - lo)
-        lengths = _scatter(hi - lo + 1, run, _ones(run), accumulate=True)
+        lengths = scatter(hi - lo + 1, run, ones(run), accumulate=True)
         sums = torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
                                     unsafe=True)
         j = torch.arange(hi - lo + 1, device=dev)
@@ -155,9 +155,9 @@ def _bsr_spgemm(a: BSR, b: BSR, plan: BsrPlan) -> BSR:
     # output structure: heads carry (brow, bcol) at slot uniq_s
     head_slot = torch.where(is_head, uniq_s, cap_out)
     brow_s = torch.div(key_s, nb, rounding_mode="floor")
-    out_colidx = _scatter(cap_out, head_slot, key_s - brow_s * nb,
-                          accumulate=False)
-    out_brow = _scatter(cap_out, head_slot, brow_s - mb, accumulate=False) + mb
+    out_colidx = scatter(cap_out, head_slot, key_s - brow_s * nb,
+                         accumulate=False)
+    out_brow = scatter(cap_out, head_slot, brow_s - mb, accumulate=False) + mb
     needles = torch.arange(mb + 1, device=dev)
     rowptr = torch.minimum(torch.searchsorted(out_brow, needles), n_uniq)
     return BSR(

@@ -7,7 +7,7 @@ Pipeline (one product stream, static capacities from the host plan):
    metadata (row, B position, remaining length, a_v bits) is
    *delta-propagated*: each entry's delta against the previous entry is
    scattered at its first chunk and a cumsum spreads it
-   (``_propagate_entry_consts``).
+   (``stream.propagate_entry_consts``).
 2. **Expansion.** Chunk c reads B's (col, val) at [start_c, start_c + K)
    (``_expand_chunks``), whole rows of an al-aligned copy of B
    (``_expand_aligned``), or, for long B rows, whole rows of a
@@ -15,8 +15,13 @@ Pipeline (one product stream, static capacities from the host plan):
 3. **Sort** the flat product stream by one int64 key
    ``row << cbits | col``.
 4. **Run-sum + compaction** of duplicate (row, col) runs
-   (``scancompact.runsum_compact_scan``); rowptr is one (m+1)-gather into
-   the tail-count cumsum at the per-row product offsets.
+   (``stream.merge_products``); rowptr is one (m+1)-gather into the
+   tail-count cumsum at the per-row product offsets.
+
+Steps 3-4 and the helpers the other methods share are ``ops/stream``;
+this module is chunked's plan and expansions, and ``make_dist_local_plan``,
+the same plan cut per row block (the distributed schedules and the
+out-of-core blocks).
 
 What differs from the reference package's ``ops/chunked.py``:
 
@@ -28,8 +33,8 @@ What differs from the reference package's ``ops/chunked.py``:
   ``disp_bits`` and ``tail_mode`` plan fields (the reference's TPU shift
   compaction) and the CPU-only ``b_pack`` gather option are not carried.
 - JAX's dropped out-of-range scatters become scatters into one extra dump
-  slot past the end (``_scatter``); int32 delta propagation runs in int64,
-  so nothing relies on two's-complement wraparound.
+  slot past the end (``stream.scatter``); int32 delta propagation runs in
+  int64, so nothing relies on two's-complement wraparound.
 """
 from __future__ import annotations
 
@@ -38,13 +43,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..sparse.csr import CSR, INDEX_DTYPE, host_view, pad_bucket
+from ..sparse.csr import CSR, host_view, pad_bucket
 from ..utils import profiling
-
-F32 = torch.float32
-# values that ride as float32 bits through the expansion (the reference's
-# packing gates): bfloat16 and float16 products are formed in float32
-F32_PACKABLE = (torch.float32, torch.bfloat16, torch.float16)
+from .stream import (
+    F32_PACKABLE,
+    aligned_table,
+    bits_f32,
+    f32_bits,
+    merge_products,
+    ones,
+    pad_gentle,
+    propagate_entry_consts,
+    row_product_offsets,
+    row_stream,
+    scatter,
+)
 
 WIDE_LANES = 128  # padded-B table row width of the wide path
 
@@ -82,14 +95,6 @@ class ChunkedPlan:
             + self.nchunks_cap
             + self.wchunks_cap * self.wide_lanes
         )
-
-
-def pad_gentle(n: int, minimum: int = 8) -> int:
-    """Round up to the next m * 2^e with m in [8, 15] — ~6% worst-case waste
-    (vs 2x for pow2 buckets) while keeping reuse buckets logarithmic."""
-    n = max(int(n), minimum)
-    e = max(n.bit_length() - 4, 0)
-    return -(-n >> e) << e
 
 
 def make_chunked_plan(
@@ -247,79 +252,109 @@ def make_chunked_plan(
     )
 
 
-# ---------------------------------------------------------------------------
-# device helpers
-# ---------------------------------------------------------------------------
+def make_dist_local_plan(
+    a: CSR, b: CSR, n_shards: int, halo_lens: list | None = None,
+    bounds: np.ndarray | None = None,
+) -> ChunkedPlan:
+    """One ChunkedPlan for every row shard: the whole matrix's mode
+    decisions (k, al-aligned tables, wide split, scatter-SET, all
+    per-matrix) with the capacities the max over the shards.
 
+    halo_lens: per-shard arrays of the assembled halo's B row lengths (the
+    halo schedule of ``parallel/halo``): the aligned and wide tables are
+    sized on the halo, not on the whole B.
 
-def _scatter(size: int, idx: torch.Tensor, src: torch.Tensor, *,
-             accumulate: bool, out: torch.Tensor | None = None) -> torch.Tensor:
-    """``zeros(size).at[idx].add/set(src, mode="drop")`` along the first
-    axis: targets outside [0, size) go to one dump slot past the end, which
-    is cut off. ``out``, a (size + 1, ...) buffer, takes the scatter in
-    place of a new zero buffer (a stream of chunks adding into one)."""
-    buf = out if out is not None else torch.zeros(
-        (size + 1, *src.shape[1:]), dtype=src.dtype, device=src.device)
-    idx = idx.long()
-    idx = torch.where((idx >= 0) & (idx < size), idx, size)
-    if accumulate:
-        buf.index_add_(0, idx, src)
-    else:
-        buf[idx] = src
-    return buf[:size]
-
-
-def _ones(x: torch.Tensor) -> torch.Tensor:
-    return torch.ones(x.shape, dtype=torch.int64, device=x.device)
-
-
-def _f32_bits(x: torch.Tensor) -> torch.Tensor:
-    return x.to(F32).view(torch.int32)
-
-
-def _bits_f32(bits: torch.Tensor) -> torch.Tensor:
-    """Inverse of _f32_bits for int64 tensors holding int32 bit patterns."""
-    return bits.to(torch.int32).view(F32)
-
-
-def _propagate_entry_consts(starts, deltas_src, chunks_cap: int,
-                            use_set: bool = False):
-    """Broadcast per-entry integer constants onto the chunk stream without a
-    per-chunk gather: scatter each entry's delta against the previous entry
-    at its first chunk, then cumsum (int64, so the sums telescope exactly).
-    Entries with zero chunks collide additively at the next entry's start,
-    where their deltas sum to the correct skip.
-
-    use_set: scatter-SET instead of scatter-add. Only valid when ``starts``
-    is strictly increasing over real entries (ChunkedPlan.scatter_set);
-    capacity-padding entries then collide only at the never-valid slot
-    ``total``.
+    bounds: explicit row boundaries (n_shards + 1,), for non-uniform
+    shards (``parallel/dist.balanced_row_bounds``) and the out-of-core
+    path's product-balanced blocks (``ops/batched``); default the uniform
+    partition of ``parallel/dist.shard_rows``.
     """
-    outs = []
-    for q in deltas_src:
-        q = q.long()
-        d = q - torch.cat([q.new_zeros(1), q[:-1]])
-        acc = _scatter(chunks_cap, starts, d, accumulate=not use_set)
-        outs.append(torch.cumsum(acc, 0))
-    return outs
+    base = make_chunked_plan(a, b)
+    if base.al_min:  # mixed mode is never picked by the plan; keep it pure
+        base = make_chunked_plan(a, b, al=base.al)
 
+    m = a.m
+    m_loc = -(-m // n_shards)
+    rowptr = host_view(a.rowptr).astype(np.int64)
+    nnz_a = int(rowptr[-1])
+    rowptr_full = np.concatenate(
+        [rowptr, np.full(n_shards * m_loc - m, rowptr[-1], np.int64)]
+    )
+    if bounds is None:
+        row_bounds = np.arange(n_shards + 1) * m_loc
+    else:
+        row_bounds = np.asarray(bounds, np.int64)
+        if len(row_bounds) != n_shards + 1:
+            raise ValueError(f"{len(row_bounds)} bounds for {n_shards} shards")
+    bounds_e = rowptr_full[row_bounds]
+    b_len = np.diff(host_view(b.rowptr)).astype(np.int64)
+    lens_all = b_len[host_view(a.colidx)[:nnz_a]]
 
-def _at_row_starts(a: CSR, ends: torch.Tensor) -> torch.Tensor:
-    """(m+1,) values of an inclusive per-entry cumsum ``ends`` just before
-    each row of A starts (0 for rows that start at entry 0): the exclusive
-    prefix at row granularity."""
-    arp = a.rowptr.long()
-    return torch.where(arp > 0, ends[torch.clamp(arp - 1, min=0)], 0)
+    def seg_sum(x):  # per-shard sums of an entry-level array
+        cs = np.concatenate([[0], np.cumsum(x, dtype=np.int64)])
+        return cs[bounds_e[1:]] - cs[bounds_e[:-1]]
 
+    wide = lens_all >= base.wide_min if base.wide_min else np.zeros(
+        lens_all.shape, bool
+    )
+    lens_s = np.where(wide, 0, lens_all)  # short-row substream lengths
+    q = base.al or base.k
+    chunks_e = -(-lens_s // q)
+    if base.scatter_set:  # every real entry owns >= 1 chunk (dummies)
+        chunks_e = np.maximum(chunks_e, 1)
+    chunks_max = int(seg_sum(chunks_e).max(initial=1))
+    wchunks_max = int(
+        seg_sum(-(-np.where(wide, lens_all, 0) // base.wide_lanes)).max(
+            initial=1)
+    ) if base.wide_min else 0
 
-def _row_stream(a: CSR, ends: torch.Tensor, cap: int) -> torch.Tensor:
-    """Row id of each of ``cap`` chunks, given the inclusive cumsum of
-    chunks per A entry: +1 at each row's first chunk, cumsum (empty rows
-    stack their +1 at the same chunk)."""
-    row_chunk_start = _at_row_starts(a, ends)
-    hits_r = _scatter(cap, row_chunk_start[1:], _ones(row_chunk_start[1:]),
-                      accumulate=True)
-    return torch.cumsum(hits_r, 0)
+    # per-shard output bound: sum over the shard's rows of min(products, n)
+    prod_row = np.concatenate([[0], np.cumsum(lens_all, dtype=np.int64)])
+    row_prod = prod_row[rowptr_full[1:]] - prod_row[rowptr_full[:-1]]
+    oc = np.concatenate([[0], np.cumsum(np.minimum(row_prod, b.n),
+                                        dtype=np.int64)])
+    out_max = int(
+        (oc[np.minimum(row_bounds[1:], m)]
+         - oc[np.minimum(row_bounds[:-1], m)]).max(initial=1)
+    )
+
+    abpad_cap, bpad_cap = base.abpad_cap, base.bpad_cap
+    if halo_lens is not None:
+        # the table builds run against each shard's assembled halo B
+        if base.al:
+            def _abpad(hl):
+                sel = hl < base.wide_min if base.wide_min else np.ones(
+                    hl.shape, bool
+                )
+                return int((-(-hl[sel] // base.al) * base.al).sum())
+
+            abpad = max(_abpad(hl) if hl.size else 0 for hl in halo_lens)
+            abpad_cap = max(
+                -(-pad_gentle(max(abpad, 1) + base.al) // base.al) * base.al,
+                base.al,
+            )
+        if base.wide_min:
+            bpad = max(
+                int((np.ceil(hl[hl >= base.wide_min] / base.wide_lanes)
+                     * base.wide_lanes).sum()) if hl.size else 0
+                for hl in halo_lens
+            )
+            bpad_cap = max(
+                -(-pad_gentle(max(bpad, 1)) // base.wide_lanes)
+                * base.wide_lanes,
+                base.wide_lanes,
+            )
+
+    return dataclasses.replace(
+        base,
+        chunks_cap=pad_gentle(chunks_max),
+        wchunks_cap=pad_gentle(wchunks_max) if base.wide_min else 0,
+        out_cap=pad_gentle(out_max),
+        abpad_cap=abpad_cap,
+        bpad_cap=bpad_cap,
+        nchunks_cap=0,
+        al_min=0,
+    )
 
 
 def _expand_chunks(a: CSR, b: CSR, k: int, chunks_cap: int,
@@ -349,7 +384,7 @@ def _expand_chunks(a: CSR, b: CSR, k: int, chunks_cap: int,
     starts = ends - n_chunks_per
     c_ids = torch.arange(chunks_cap, dtype=torch.int64, device=dev)
     chunk_valid = c_ids < ends[-1]
-    row = _row_stream(a, ends, chunks_cap)
+    row = row_stream(a, ends, chunks_cap)
 
     # pos[c] = (b_start - k*starts)[e] + k*c, rem[c] = (per_nz + k*starts)[e]
     # - k*c: both brackets are entry constants. k == 1: every real chunk is
@@ -363,16 +398,16 @@ def _expand_chunks(a: CSR, b: CSR, k: int, chunks_cap: int,
     q_remb = per_nz + k * starts
     deltas = (q_posb, q_remb) if need_rem else (q_posb,)
     if a.vals.dtype in F32_PACKABLE:
-        outs = _propagate_entry_consts(
-            starts, deltas + (_f32_bits(a.vals),), chunks_cap,
+        outs = propagate_entry_consts(
+            starts, deltas + (f32_bits(a.vals),), chunks_cap,
             use_set=scatter_set,
         )
-        a_val = _bits_f32(outs[-1])
+        a_val = bits_f32(outs[-1])
     else:
-        outs = _propagate_entry_consts(
+        outs = propagate_entry_consts(
             starts, deltas, chunks_cap, use_set=scatter_set,
         )
-        hits = _scatter(chunks_cap, starts, _ones(starts), accumulate=True)
+        hits = scatter(chunks_cap, starts, ones(starts), accumulate=True)
         src = torch.clamp(torch.cumsum(hits, 0) - 1, 0, a.capacity - 1)
         a_val = a.vals[src]
     pos = outs[0] + k * c_ids
@@ -395,39 +430,10 @@ def _expand_chunks(a: CSR, b: CSR, k: int, chunks_cap: int,
     return row_t.reshape(-1), col_t.reshape(-1), val_t.reshape(-1)
 
 
-def _aligned_table(b: CSR, al: int, nrows_tbl: int, sel=None):
-    """An al-aligned copy of B as (nrows_tbl, al) tables of columns and
-    values: B row r starts at pair ``pstart[r]``, a multiple of al, and
-    alignment pad lanes hold col == -1 and val == 0 (so a lane's validity
-    can be read out of the table). Rows outside ``sel`` take no space.
-    Returns (pstart, tbl_col, tbl_val)."""
-    dev = b.device
-    b_len = b.row_lengths().long()
-    ws = ((b_len + al - 1) // al) * al
-    if sel is not None:
-        ws = torch.where(sel, ws, 0)
-    pstart = torch.cat([ws.new_zeros(1), torch.cumsum(ws, 0)])[:-1]
-    # table row -> B row map (+1 at each row's first table row, cumsum)
-    tstart = pstart // al
-    hits = _scatter(nrows_tbl, tstart[1:], _ones(tstart[1:]), accumulate=True)
-    rowid = torch.cumsum(hits, 0)
-    rp = b.rowptr.long()
-    t_ids = torch.arange(nrows_tbl, dtype=torch.int64, device=dev)
-    lane = torch.arange(al, dtype=torch.int64, device=dev)
-    src = ((rp[:-1] - pstart)[rowid] + t_ids * al)[:, None] + lane[None, :]
-    valid = src < rp[1:][rowid][:, None]
-    src = torch.clamp(src, 0, b.capacity - 1)
-    return (
-        pstart,
-        torch.where(valid, b.colidx.long()[src], -1),
-        torch.where(valid, b.vals[src], 0),
-    )
-
-
 def _expand_aligned(a: CSR, b: CSR, al: int, chunks_cap: int,
                     abpad_cap: int, wide_min: int = 0,
                     scatter_set: bool = False, al_min: int = 0):
-    """Expansion via an al-aligned copy of B (``_aligned_table``):
+    """Expansion via an al-aligned copy of B (``stream.aligned_table``):
     products arrive as whole al-lane table rows, masked by the remaining
     length like narrow-chunk tails. Requires float32-packable values (the
     plan guarantees this).
@@ -447,7 +453,7 @@ def _expand_aligned(a: CSR, b: CSR, al: int, chunks_cap: int,
     )
     if al_min:
         sel = sel & (b_len_all >= al_min)
-    pstart, tbl_col, tbl_val = _aligned_table(b, al, nrows_tbl, sel)
+    pstart, tbl_col, tbl_val = aligned_table(b, al, nrows_tbl, sel)
 
     # ---- chunk stream over A entries --------------------------------------
     entry_valid = a.row_ids() < m
@@ -467,14 +473,14 @@ def _expand_aligned(a: CSR, b: CSR, al: int, chunks_cap: int,
     starts = ends - n_chunks_per
     c_ids = torch.arange(chunks_cap, dtype=torch.int64, device=dev)
     chunk_valid = c_ids < ends[-1]
-    row = _row_stream(a, ends, chunks_cap)
+    row = row_stream(a, ends, chunks_cap)
 
-    posb, remb, aval_bits = _propagate_entry_consts(
+    posb, remb, aval_bits = propagate_entry_consts(
         starts,
-        (p_start - al * starts, per_nz + al * starts, _f32_bits(a.vals)),
+        (p_start - al * starts, per_nz + al * starts, f32_bits(a.vals)),
         chunks_cap, use_set=scatter_set,
     )
-    a_val = _bits_f32(aval_bits)
+    a_val = bits_f32(aval_bits)
     pos = posb + al * c_ids  # al-aligned for valid chunks
     rem = remb - al * c_ids
 
@@ -510,9 +516,9 @@ def _expand_wide(a: CSR, b: CSR, wide_min: int, wchunks_cap: int,
     entry_wide = (b_rows < b.m) & (b_len[b_rows_c] >= wide_min)
     off = torch.arange(b.capacity, device=dev) - b.rowptr.long()[b_rows_c]
     tgt = torch.where(entry_wide, pstart[b_rows_c] + off, bpad_cap)
-    tblc = _scatter(bpad_cap, tgt, b.colidx.long(),
-                    accumulate=False).reshape(nrows_tbl, L)
-    tblv = _scatter(bpad_cap, tgt, b.vals, accumulate=False).reshape(
+    tblc = scatter(bpad_cap, tgt, b.colidx.long(),
+                   accumulate=False).reshape(nrows_tbl, L)
+    tblv = scatter(bpad_cap, tgt, b.vals, accumulate=False).reshape(
         nrows_tbl, L
     )
 
@@ -530,19 +536,19 @@ def _expand_wide(a: CSR, b: CSR, wide_min: int, wchunks_cap: int,
     wvalid = wc < wends[-1]
 
     p0 = torch.where(wide_e, pstart[acol], 0)  # L-aligned base
-    row = _row_stream(a, wends, wchunks_cap)
+    row = row_stream(a, wends, wchunks_cap)
     q_posb = p0 - L * wstarts
     q_remb = pn + L * wstarts
     if a.vals.dtype in F32_PACKABLE:
-        posb, remb, avalb = _propagate_entry_consts(
-            wstarts, (q_posb, q_remb, _f32_bits(a.vals)), wchunks_cap
+        posb, remb, avalb = propagate_entry_consts(
+            wstarts, (q_posb, q_remb, f32_bits(a.vals)), wchunks_cap
         )
-        a_val = _bits_f32(avalb)
+        a_val = bits_f32(avalb)
     else:
-        posb, remb = _propagate_entry_consts(
+        posb, remb = propagate_entry_consts(
             wstarts, (q_posb, q_remb), wchunks_cap
         )
-        hits = _scatter(wchunks_cap, wstarts, _ones(wstarts), accumulate=True)
+        hits = scatter(wchunks_cap, wstarts, ones(wstarts), accumulate=True)
         src = torch.clamp(torch.cumsum(hits, 0) - 1, 0, a.capacity - 1)
         a_val = a.vals[src]
     trow = torch.clamp((posb + L * wc) // L, 0, nrows_tbl - 1)
@@ -555,89 +561,6 @@ def _expand_wide(a: CSR, b: CSR, wide_min: int, wchunks_cap: int,
     col_t = torch.where(lv, col, 0)
     val_t = torch.where(lv, val, 0)
     return row_t.reshape(-1), col_t.reshape(-1), val_t.reshape(-1)
-
-
-def _segmented_runsum(row, col, val, max_run: int = 0):
-    """Sum duplicate (row, col) runs of a sorted stream; run tails hold the
-    totals (log-step Hillis–Steele shifts).
-
-    max_run: bound on run length — caps the passes at log2(max_run).
-    """
-    cap = row.shape[0]
-    bound = min(max_run, cap) if max_run else cap
-    run = val
-    k = 1
-    while k < bound:
-        same = torch.zeros(cap, dtype=torch.bool, device=val.device)
-        same[k:] = (row[k:] == row[:-k]) & (col[k:] == col[:-k])
-        shifted = torch.zeros_like(run)
-        shifted[k:] = run[:-k]
-        run = run + torch.where(same, shifted, 0)
-        k *= 2
-    return run
-
-
-def _shift_compact(kept, disp, arrays):
-    """Stable left-compaction: every kept element i moves to i - disp[i]
-    (targets are strictly increasing over kept elements). The reference
-    package does this in log2(holes) conditional-shift passes; here it is
-    one scatter per array. Slots past the compacted prefix hold 0."""
-    cap = disp.shape[0]
-    tgt = torch.arange(cap, device=disp.device) - disp.long()
-    tgt = torch.where(kept, tgt, cap)
-    return [_scatter(cap, tgt, x, accumulate=False) for x in arrays]
-
-
-def row_product_offsets(a: CSR, b: CSR):
-    """(m+1,) cumulative per-row product counts: offsets[i] = # products
-    with row < i. The sorted stream groups rows in order, so these are the
-    row boundaries of the sorted stream."""
-    rp = b.rowptr.long()
-    acol = a.colidx.long()
-    per_nz = torch.where(a.row_ids() < a.m, rp[acol + 1] - rp[acol], 0)
-    return _at_row_starts(a, torch.cumsum(per_nz, 0))
-
-
-def merge_products(row, col, val, m: int, n: int, out_cap: int,
-                   max_run: int = 0, val_dtype=None, prodstart=None) -> CSR:
-    """Stages 3-4 on a flat product stream (row == m marks invalid slots):
-    sort by the int64 key ``row << cbits | col`` -> run-sum + compaction ->
-    rowptr.
-
-    prodstart: optional (m+1,) cumulative per-row product counts of the
-    stream; when given, rowptr is one (m+1)-gather instead of an
-    (m+1)-needle binary search over the sorted stream."""
-    from .scancompact import runsum_compact_scan
-
-    val_dtype = val_dtype or val.dtype
-    cap = row.shape[0]
-    cbits = max(int(n - 1).bit_length(), 1)
-    sentinel = m << cbits  # above every valid key
-    key = torch.where(row < m, (row << cbits) | col, sentinel)
-    key, perm = torch.sort(key)
-    val = val[perm]
-    keyc, val_c, cum_tails = runsum_compact_scan(
-        key, val, w=cap, out_cap=out_cap, max_run=max_run or cap,
-        sentinel=sentinel,
-    )
-    n_uniq = cum_tails[-1]
-    oc = torch.arange(out_cap, device=key.device)
-    out_col = torch.where(oc < n_uniq, keyc & ((1 << cbits) - 1), 0)
-    out_val = torch.where(oc < n_uniq, val_c, 0).to(val_dtype)
-
-    # rowptr[i] = unique tails strictly before the first element with
-    # row >= i
-    if prodstart is not None:
-        first_ge = torch.clamp(prodstart.long(), 0, cap)
-    else:
-        needles = torch.arange(m + 1, device=key.device) << cbits
-        first_ge = torch.searchsorted(key, needles)
-    rowptr = torch.where(
-        first_ge > 0, cum_tails[torch.clamp(first_ge - 1, min=0)], 0
-    )
-    rowptr = torch.minimum(rowptr, n_uniq)
-    return CSR(rowptr=rowptr.to(INDEX_DTYPE), colidx=out_col.to(INDEX_DTYPE),
-               vals=out_val, shape=(m, n))
 
 
 def spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:

@@ -11,8 +11,8 @@ work into one dense matrix product instead:
    (``ieee_fp32``; float64 runs in native float64, bfloat16 in float32);
 3. extract C's values at the structural positions the host plan computed,
    by hole fraction: ``identity`` at zero holes, ``shift`` (a stable
-   left-compaction, ``chunked._shift_compact``) when holes < slots / 8,
-   else ``scan`` (``scancompact.runsum_compact_scan`` on plan-constant
+   left-compaction, ``stream.shift_compact``) when holes < slots / 8,
+   else ``scan`` (``stream.runsum_compact_scan`` on plan-constant
    keys with ``max_run=1``).
 
 The plan's rowptr/colidx are the boolean pattern product, so entries that
@@ -32,8 +32,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, acc_dtype, pad_bucket
-from .chunked import _shift_compact
-from .scancompact import SENTINEL_U32, runsum_compact_scan
+from .stream import SENTINEL_U32, runsum_compact_scan, shift_compact
 
 
 @contextlib.contextmanager
@@ -142,7 +141,7 @@ def spgemm_dense(a: CSR, b: CSR, plan: DensePlan) -> CSR:
         cd = da @ db
     vals = cd.reshape(-1)
     if plan.mode == "shift":
-        (vals,) = _shift_compact(plan.p1, plan.p2, [vals])
+        (vals,) = shift_compact(plan.p1, plan.p2, [vals])
     elif plan.mode == "scan":
         # one pass on plan-constant keys; max_run=1 makes the run-sum a
         # no-op (every run is a singleton)

@@ -17,6 +17,7 @@ import numpy as np
 from ..sparse.csr import CSR, IdentityMemo, host_view, sorted_unique
 from ..sparse.dia import dia_offsets_of
 from ..utils import profiling
+from .stream import rc_pack_bits
 
 # measured on a TPU v5e, not yet calibrated for the H100
 CHUNKED_NS_PER_PRODUCT = 9.5
@@ -78,13 +79,6 @@ def _stats(a: CSR, b: CSR | None = None):
     return a_rowptr, nnz_a, a_row_lens, a_cols, products
 
 
-def _rc_pack_bits(m: int, n: int) -> int:
-    """Bits of the reference's packed (row << bits | col) int32 sort key,
-    or 0 if it doesn't fit (the cost model distinguishes the two)."""
-    col_bits = max(int(n).bit_length(), 1)
-    return col_bits if (m + 1) << col_bits < (1 << 31) else 0
-
-
 def estimate_chunked_s(
     a: CSR, b: CSR | None = None, products: int | None = None
 ) -> float:
@@ -94,7 +88,7 @@ def estimate_chunked_s(
     m, n = a.m, b.n
     cbits = max(int(max(n - 1, 1)).bit_length(), 1)
     rbits = max(int(max(m - 1, 1)).bit_length(), 1)
-    packed = _rc_pack_bits(m, n) > 0 or cbits + rbits <= 32
+    packed = rc_pack_bits(m, n) > 0 or cbits + rbits <= 32
     if packed:
         ns = CHUNKED_NS_PER_PRODUCT
     else:

@@ -15,29 +15,8 @@ import dataclasses
 
 import torch
 
-from ..sparse.csr import CSR, INDEX_DTYPE, acc_dtype
-from .symbolic import products_per_nz
-
-
-def gather_products(a: CSR, b: CSR, g: torch.Tensor, valid: torch.Tensor):
-    """Map global product indices ``g`` (int64) to their (a_entry, col,
-    val) triples. Product ``g`` belongs to A-entry k iff
-    ``starts[k] <= g < ends[k]`` (exclusive/inclusive cumsum of per-entry
-    product counts). Invalid lanes yield (col=0, val=0). Values come in
-    ``acc_dtype`` (bfloat16 products in float32)."""
-    per_nz = products_per_nz(a, b).long()
-    ends = torch.cumsum(per_nz, 0)
-    starts = ends - per_nz
-    src = torch.searchsorted(ends, g, right=True)
-    src_c = torch.clamp(src, max=a.capacity - 1)
-    inner = g - starts[src_c]
-    acol = a.colidx.long()[src_c]
-    bptr = b.rowptr.long()[acol] + inner
-    bptr_c = torch.clamp(bptr, 0, b.capacity - 1)
-    col = torch.where(valid, b.colidx.long()[bptr_c], 0)
-    dt = acc_dtype(torch.promote_types(a.vals.dtype, b.vals.dtype))
-    val = torch.where(valid, a.vals[src_c].to(dt) * b.vals[bptr_c].to(dt), 0)
-    return src_c, col, val
+from ..sparse.csr import CSR, INDEX_DTYPE
+from .stream import gather_products, products_per_nz
 
 
 def expand_products(a: CSR, b: CSR, prod_capacity: int):

@@ -19,10 +19,13 @@ plan and replays the executable for any operand arrays of the same shapes.
   caller (``spgemm(auto)`` on a fresh matrix) pays no warm-up, capture or
   instantiation.
 - **Second call** captures: static input tensors take copies of the
-  arguments, one eager warm-up runs on a side stream (it also builds a
-  hand-written kernel before any capture), then ``torch.cuda.graph``
-  records the body (it empties the caching allocator's cache as it
-  begins, once per plan), and the graph replays once for this call.
+  arguments, the caching allocator's cache is emptied, one eager warm-up
+  runs on a side stream (it also builds a hand-written kernel before any
+  capture), then ``torch.cuda.graph`` records the body (it empties the
+  cache again as it begins), and the graph replays once for this call.
+  The side stream cannot reuse the blocks the first call left cached on
+  the caller's stream, so without the first emptying a large body's
+  warm-up would stack on them up to the card's memory.
 - **Later calls** copy the arguments into the static inputs, replay, and
   return clones of the outputs: the reference returns fresh arrays, so a
   C the caller holds survives the next call.
@@ -206,7 +209,9 @@ class Graph:
                                           device=device) for t in tensors]
             self._copy_in(tensors)
             args = _rebuild(key[3], iter(self.static_in))
-            # warm-up on a side stream (PyTorch's capture recipe)
+            # warm-up on a side stream (PyTorch's capture recipe), not
+            # beside the caller stream's cached blocks (module docstring)
+            torch.cuda.empty_cache()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):

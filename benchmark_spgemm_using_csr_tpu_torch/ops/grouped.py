@@ -14,12 +14,12 @@ Pipeline:
    al-aligned), greedily fill rows into groups of ``cs`` chunk slots under
    the rows-per-group key-bit cap, build per-row slot offsets;
 2. device: propagate per-entry constants onto the group-strided chunk
-   stream (ops/chunked machinery), expand products via a per-product
+   stream (ops/stream machinery), expand products via a per-product
    gather or whole rows of an al-aligned B table with sentinel pad lanes;
 3. ONE 2D sort of the keys along the group axis, values gathered by the
    sort's permutation;
-4. run-sum + compaction (ops/scancompact), rowptr via an (m+1)-gather
-   into the tail cumsum at host-known sorted offsets.
+4. run-sum + compaction (``stream.runsum_compact_scan``), rowptr via an
+   (m+1)-gather into the tail cumsum at host-known sorted offsets.
 
 What differs from the reference package's ``ops/grouped.py``: keys are
 int64 with the sentinel 2**32 - 1 (the reference sorts uint32); values
@@ -40,15 +40,16 @@ import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, acc_dtype, host_view
 from ..utils import profiling
-from .chunked import (
-    _aligned_table,
-    _at_row_starts,
-    _ones,
-    _propagate_entry_consts,
-    _scatter,
+from .stream import (
+    SENTINEL_U32,
+    aligned_table,
+    at_row_starts,
+    ones,
     pad_gentle,
+    propagate_entry_consts,
+    runsum_compact_scan,
+    scatter,
 )
-from .scancompact import SENTINEL_U32, runsum_compact_scan
 from .symbolic import exact_nnz_c
 
 
@@ -364,7 +365,7 @@ def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
         nrows_tbl = plan.abpad_cap // al
         # pad lanes hold col == -1: lane validity comes from the table,
         # not from a remaining length
-        pstart, tbl_col, tbl_val = _aligned_table(b, al, nrows_tbl)
+        pstart, tbl_col, tbl_val = aligned_table(b, al, nrows_tbl)
         per_nz = torch.where(entry_valid, b.row_lengths().long()[acol], 0)
         # zero-product entries (dummy chunks under scatter-SET) read the
         # guaranteed all-sentinel pad region past the aligned table
@@ -383,13 +384,13 @@ def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
     ends = torch.cumsum(n_chunks_per, 0)
     starts = ends - n_chunks_per
     arp = a.rowptr.long()
-    row_chunk_start = _at_row_starts(a, ends)
+    row_chunk_start = at_row_starts(a, ends)
 
     # first slot per entry: fs = starts + (slot0[row] - row_chunk_start),
     # the bracket spread to entries by a row-boundary delta scatter
     g_row = slot0.long() - row_chunk_start[:-1]
     d_g = g_row - torch.cat([g_row.new_zeros(1), g_row[:-1]])
-    spread = _scatter(a.capacity, arp[:-1], d_g, accumulate=True)
+    spread = scatter(a.capacity, arp[:-1], d_g, accumulate=True)
     fs = starts + torch.cumsum(spread, 0)
 
     # posb propagation with group-boundary liveness injections: -BIG at
@@ -399,10 +400,10 @@ def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
     BIG = 1 << 30
     q_posb = p_start - lanes * fs
     d_pb = q_posb - torch.cat([q_posb.new_zeros(1), q_posb[:-1]])
-    acc = _scatter(S, fs, d_pb, accumulate=not plan.scatter_set)
+    acc = scatter(S, fs, d_pb, accumulate=not plan.scatter_set)
     g_bases = torch.arange(1, plan.g_cap, dtype=torch.int64, device=dev) * plan.cs
     fill_end = fill_end.long()
-    acc = acc + _scatter(
+    acc = acc + scatter(
         S, torch.cat([g_bases, fill_end]),
         torch.cat([torch.full_like(g_bases, BIG),
                    torch.full_like(fill_end, -BIG)]),
@@ -410,7 +411,7 @@ def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
     )
     posb = torch.cumsum(acc, 0)
     # per-slot A value: propagate the entry id, then one gather
-    eid = _propagate_entry_consts(
+    eid = propagate_entry_consts(
         fs, (torch.arange(a.capacity, device=dev),), S,
         use_set=plan.scatter_set,
     )[0]
@@ -434,9 +435,9 @@ def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,
 
     # ---- group-local packed keys ----------------------------------------
     # nonempty-row rank per slot minus the group's first rank = local row
-    hits_r = _scatter(
+    hits_r = scatter(
         S + 1, torch.where(row_chunks > 0, slot0.long(), S),
-        _ones(row_chunks), accumulate=True,
+        ones(row_chunks), accumulate=True,
     )
     rank = torch.cumsum(hits_r[:S], 0)  # 1-based
     lr = rank - 1 - first_rank.long().repeat_interleave(plan.cs)

@@ -33,7 +33,7 @@ from ..sparse.csr import (
     pad_bucket,
 )
 from .binned import _counts_add, _rowptr_from_counts, _scatter_bin
-from .esc import gather_products
+from .stream import gather_products
 from .symbolic import nnz_upper_bound, total_products
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, host_view, pad_bucket
-from .chunked import pad_gentle
+from .stream import pad_gentle
 
 
 @dataclasses.dataclass(frozen=True)

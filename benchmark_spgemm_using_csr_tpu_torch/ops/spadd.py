@@ -2,7 +2,7 @@
 
 Addition is a degenerate merge: concatenate the two operands' (row, col,
 val) streams and run the chunked path's sort-merge core
-(``chunked.merge_products``) on them, where every (row, col) run has
+(``stream.merge_products``) on them, where every (row, col) run has
 length <= 2, so the run-sum is one shift-add pass. Capacities come from a
 frozen AddPlan.
 
@@ -21,8 +21,7 @@ import dataclasses
 import torch
 
 from ..sparse.csr import CSR, host_view
-from .chunked import merge_products, pad_gentle
-from .dispatch import _rc_pack_bits
+from .stream import merge_products, pad_gentle, rc_pack_bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +48,7 @@ def make_add_plan(a: CSR, b: CSR) -> AddPlan:
 
     m, n = a.shape
     pack_u32 = False
-    if _rc_pack_bits(m, n) == 0 and m >= 2 and n >= 2:
+    if rc_pack_bits(m, n) == 0 and m >= 2 and n >= 2:
         cbits = max(int(n - 1).bit_length(), 1)
         rbits = max(int(m - 1).bit_length(), 1)
         pack_u32 = cbits + rbits <= 32

@@ -19,6 +19,7 @@ import torch
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view, pad_bucket
 from ..utils import profiling
 from . import _build
+from .stream import gather_products, products_per_nz
 
 # K5's entry point's arguments before the stream
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
@@ -29,16 +30,6 @@ _K5_ARGS = (_P, _P, _P, _P, _LL, _LL, _P, _P, _P, _LL)
 # bitmap a block, all slices at most MAP_BYTES_MAX
 MAP_SMEM_BYTES = 232448 - 3072 - 1024
 MAP_BYTES_MAX = 256 << 20
-
-
-def products_per_nz(a: CSR, b: CSR) -> torch.Tensor:
-    """Intermediate products contributed by each stored entry of A.
-
-    Shape (a.capacity,) int32; padding slots contribute 0.
-    """
-    per_nz = b.row_lengths()[a.colidx.long()]
-    valid = a.row_ids() < a.m
-    return torch.where(valid, per_nz, 0).to(INDEX_DTYPE)
 
 
 def nnz_upper_bound(a: CSR, b: CSR) -> torch.Tensor:
@@ -63,8 +54,6 @@ def nnz_exact(a: CSR, b: CSR, prod_capacity: int) -> torch.Tensor:
     """Exact per-row nnz(C): materialize the (row, col) product keys
     (values untouched), sort, and count unique keys per row. The plain
     version of K5 (``nnz_rows``)."""
-    from .esc import gather_products
-
     m = a.m
     total = total_products(a, b)
     p = torch.arange(prod_capacity, dtype=torch.int64, device=a.device)

@@ -19,10 +19,8 @@ import numpy as np
 import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, pad_bucket
-from .chunked import _ones, _scatter, pad_gentle
+from .stream import F32, ones, pad_gentle, scatter
 from .symbolic import nnz_upper_bound
-
-F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +64,7 @@ def expand_rows(a: CSR, b: CSR, plan: TiledPlan):
     per_nz = torch.where(a_rows < m, b.row_lengths().long()[acol], 0)
     ends = torch.cumsum(per_nz, 0)
     starts = ends - per_nz
-    hits = _scatter(plan.prod_cap, starts, _ones(starts), accumulate=True)
+    hits = scatter(plan.prod_cap, starts, ones(starts), accumulate=True)
     src = torch.clamp(torch.cumsum(hits, 0) - 1, 0, a.capacity - 1)
 
     nnz_ct = torch.zeros(m + 1, dtype=torch.int64, device=dev)
@@ -110,9 +108,9 @@ def _spgemm_tiled(a: CSR, b: CSR, plan: TiledPlan) -> CSR:
                         torch.cumsum(counts.long(), 0)])
     tgt = torch.where(pos < plan.width, rowptr[:m, None] + pos,
                       plan.out_cap).reshape(-1)
-    colidx = _scatter(plan.out_cap, tgt, cols_t.reshape(-1),
-                      accumulate=False).to(INDEX_DTYPE)
-    vals = _scatter(plan.out_cap, tgt, vals_t.reshape(-1).to(a.vals.dtype),
-                    accumulate=False)
+    colidx = scatter(plan.out_cap, tgt, cols_t.reshape(-1),
+                     accumulate=False).to(INDEX_DTYPE)
+    vals = scatter(plan.out_cap, tgt, vals_t.reshape(-1).to(a.vals.dtype),
+                   accumulate=False)
     return CSR(rowptr=rowptr.to(INDEX_DTYPE), colidx=colidx, vals=vals,
                shape=(m, n))

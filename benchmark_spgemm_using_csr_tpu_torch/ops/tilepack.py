@@ -15,7 +15,7 @@ Pipeline:
    never straddles a tile), build per-row slot offsets and
    (tile, local-row) ids;
 2. device: propagate per-entry constants onto the tile-slot stream
-   (ops/chunked machinery) and fetch products as whole al-lane rows of an
+   (ops/stream machinery) and fetch products as whole al-lane rows of an
    al-aligned copy of B whose pad lanes hold col == -1;
 3. ``tile_sort_merge`` on the packed (local_row << cbits | col) keys;
 4. rowptr from the per-(tile, local_row) counts (one m-gather + cumsum);
@@ -35,21 +35,20 @@ import torch
 
 from ..sparse.csr import CSR, INDEX_DTYPE, host_view
 from ..utils import profiling
-from .chunked import (
+from .stream import (
     F32_PACKABLE,
-    _aligned_table,
-    _at_row_starts,
-    _bits_f32,
-    _f32_bits,
-    _ones,
-    _propagate_entry_consts,
-    _scatter,
-    _shift_compact,
+    aligned_table,
+    at_row_starts,
+    bits_f32,
+    f32_bits,
+    ones,
     pad_gentle,
+    propagate_entry_consts,
+    scatter,
+    shift_compact,
 )
 from .symbolic import exact_nnz_c
 
-F32 = torch.float32
 SENTINEL = 1 << 30
 
 
@@ -214,7 +213,7 @@ def pack_tiles(
 
     # ---- aligned B table; alignment-pad lanes store col == -1, so lane
     # validity is read out of the table --------------------------------------
-    pstart, tbl_col, tbl_val = _aligned_table(b, al, nrows_tbl)
+    pstart, tbl_col, tbl_val = aligned_table(b, al, nrows_tbl)
 
     # ---- per-entry chunk metadata -> tile-slot destinations ---------------
     acol = a.colidx.long()
@@ -231,21 +230,21 @@ def pack_tiles(
     ends = torch.cumsum(n_chunks_per, 0)
     starts = ends - n_chunks_per
     arp = a.rowptr.long()
-    row_chunk_start = _at_row_starts(a, ends)
+    row_chunk_start = at_row_starts(a, ends)
 
     # first tile-slot per entry: fs = starts + (slot0[row] -
     # row_chunk_start[row]), spread to entries by a row-boundary scatter
     slot0 = sched.slot0.long()
     g_row = slot0 - row_chunk_start[:-1]
     d_g = g_row - torch.cat([g_row.new_zeros(1), g_row[:-1]])
-    spread = _scatter(a.capacity, arp[:-1], d_g, accumulate=True)
+    spread = scatter(a.capacity, arp[:-1], d_g, accumulate=True)
     fs = starts + torch.cumsum(spread, 0)
 
-    posb, aval_bits = _propagate_entry_consts(
-        fs, (p_start - al * fs, _f32_bits(a.vals)), S,
+    posb, aval_bits = propagate_entry_consts(
+        fs, (p_start - al * fs, f32_bits(a.vals)), S,
         use_set=plan.scatter_set,
     )
-    a_val = _bits_f32(aval_bits)
+    a_val = bits_f32(aval_bits)
     s_ids = torch.arange(S, dtype=torch.int64, device=dev)
     pos = posb + al * s_ids
 
@@ -254,7 +253,7 @@ def pack_tiles(
     row_chunks = row_chunk_start[1:] - row_chunk_start[:-1]
     rend = slot0 + row_chunks
     d_re = rend - torch.cat([rend.new_zeros(1), rend[:-1]])
-    re_acc = _scatter(S, torch.clamp(slot0, max=S - 1), d_re, accumulate=True)
+    re_acc = scatter(S, torch.clamp(slot0, max=S - 1), d_re, accumulate=True)
     slot_live = s_ids < torch.cumsum(re_acc, 0)
 
     # ---- expansion gather (al lanes per table row) ------------------------
@@ -264,8 +263,8 @@ def pack_tiles(
     lv = slot_live[:, None] & (col >= 0)
 
     # ---- local-row ids + packed int32 keys --------------------------------
-    hits_r = _scatter(
-        S + 1, torch.where(row_chunks > 0, slot0, S), _ones(row_chunks),
+    hits_r = scatter(
+        S + 1, torch.where(row_chunks > 0, slot0, S), ones(row_chunks),
         accumulate=True,
     )
     rank = torch.cumsum(hits_r[:S], 0)  # 1-based nonempty-row rank per slot
@@ -316,7 +315,7 @@ def _spgemm_tilepack(a: CSR, b: CSR, slot0, q, first_rank,
     kept = (posf < W).reshape(-1)
     uniq = (tprefix[:, None] + posf).reshape(-1)
     disp = torch.arange(plan.t_cap * W, device=dev) - uniq
-    keyc, valc = _shift_compact(
+    keyc, valc = shift_compact(
         kept, torch.where(kept, disp, 0), [okey.reshape(-1), oval.reshape(-1)]
     )
     out_col = (keyc[: plan.out_cap] & ((1 << plan.cbits) - 1)).to(INDEX_DTYPE)

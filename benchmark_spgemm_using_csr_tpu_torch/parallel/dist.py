@@ -36,17 +36,20 @@ import numpy as np
 import torch
 
 from ..ops.chunked import (
-    F32_PACKABLE,
     ChunkedPlan,
-    _bits_f32,
-    _f32_bits,
-    _ones,
-    _propagate_entry_consts,
-    _scatter,
     make_chunked_plan,
-    merge_products,
-    pad_gentle,
+    make_dist_local_plan,
     spgemm_chunked,
+)
+from ..ops.stream import (
+    F32_PACKABLE,
+    bits_f32,
+    f32_bits,
+    merge_products,
+    ones,
+    pad_gentle,
+    propagate_entry_consts,
+    scatter,
 )
 from ..sparse.csr import (
     CSR,
@@ -200,116 +203,6 @@ def gather_shards(c_loc: CSR, mesh: Mesh, shape, bounds=None) -> ShardedCSR:
     return ShardedCSR(rp, mesh.all_gather_v(c_loc.colidx, nnz),
                       mesh.all_gather_v(c_loc.vals, nnz), tuple(shape),
                       bounds=bounds)
-
-
-# ---------------------------------------------------------------------------
-# Per-shard local plans (the same tuned machinery as the single-chip core)
-# ---------------------------------------------------------------------------
-
-
-def make_dist_local_plan(
-    a: CSR, b: CSR, n_shards: int, halo_lens: list | None = None,
-    bounds: np.ndarray | None = None,
-) -> ChunkedPlan:
-    """One ChunkedPlan for every row shard: the whole matrix's mode
-    decisions (k, al-aligned tables, wide split, scatter-SET, all
-    per-matrix) with the capacities the max over the shards.
-
-    halo_lens: per-shard arrays of the assembled halo's B row lengths (the
-    halo schedule): the aligned and wide tables are sized on the halo, not
-    on the whole B.
-
-    bounds: explicit row boundaries (n_shards + 1,), for non-uniform
-    shards (``balanced_row_bounds``) and the out-of-core path's
-    product-balanced blocks (``ops/batched``); default the uniform
-    partition of ``shard_rows``.
-    """
-    base = make_chunked_plan(a, b)
-    if base.al_min:  # mixed mode is never picked by the plan; keep it pure
-        base = make_chunked_plan(a, b, al=base.al)
-
-    m = a.m
-    m_loc = -(-m // n_shards)
-    rowptr = host_view(a.rowptr).astype(np.int64)
-    nnz_a = int(rowptr[-1])
-    rowptr_full = np.concatenate(
-        [rowptr, np.full(n_shards * m_loc - m, rowptr[-1], np.int64)]
-    )
-    if bounds is None:
-        row_bounds = np.arange(n_shards + 1) * m_loc
-    else:
-        row_bounds = np.asarray(bounds, np.int64)
-        if len(row_bounds) != n_shards + 1:
-            raise ValueError(f"{len(row_bounds)} bounds for {n_shards} shards")
-    bounds_e = rowptr_full[row_bounds]
-    b_len = np.diff(host_view(b.rowptr)).astype(np.int64)
-    lens_all = b_len[host_view(a.colidx)[:nnz_a]]
-
-    def seg_sum(x):  # per-shard sums of an entry-level array
-        cs = np.concatenate([[0], np.cumsum(x, dtype=np.int64)])
-        return cs[bounds_e[1:]] - cs[bounds_e[:-1]]
-
-    wide = lens_all >= base.wide_min if base.wide_min else np.zeros(
-        lens_all.shape, bool
-    )
-    lens_s = np.where(wide, 0, lens_all)  # short-row substream lengths
-    q = base.al or base.k
-    chunks_e = -(-lens_s // q)
-    if base.scatter_set:  # every real entry owns >= 1 chunk (dummies)
-        chunks_e = np.maximum(chunks_e, 1)
-    chunks_max = int(seg_sum(chunks_e).max(initial=1))
-    wchunks_max = int(
-        seg_sum(-(-np.where(wide, lens_all, 0) // base.wide_lanes)).max(
-            initial=1)
-    ) if base.wide_min else 0
-
-    # per-shard output bound: sum over the shard's rows of min(products, n)
-    prod_row = np.concatenate([[0], np.cumsum(lens_all, dtype=np.int64)])
-    row_prod = prod_row[rowptr_full[1:]] - prod_row[rowptr_full[:-1]]
-    oc = np.concatenate([[0], np.cumsum(np.minimum(row_prod, b.n),
-                                        dtype=np.int64)])
-    out_max = int(
-        (oc[np.minimum(row_bounds[1:], m)]
-         - oc[np.minimum(row_bounds[:-1], m)]).max(initial=1)
-    )
-
-    abpad_cap, bpad_cap = base.abpad_cap, base.bpad_cap
-    if halo_lens is not None:
-        # the table builds run against each shard's assembled halo B
-        if base.al:
-            def _abpad(hl):
-                sel = hl < base.wide_min if base.wide_min else np.ones(
-                    hl.shape, bool
-                )
-                return int((-(-hl[sel] // base.al) * base.al).sum())
-
-            abpad = max(_abpad(hl) if hl.size else 0 for hl in halo_lens)
-            abpad_cap = max(
-                -(-pad_gentle(max(abpad, 1) + base.al) // base.al) * base.al,
-                base.al,
-            )
-        if base.wide_min:
-            bpad = max(
-                int((np.ceil(hl[hl >= base.wide_min] / base.wide_lanes)
-                     * base.wide_lanes).sum()) if hl.size else 0
-                for hl in halo_lens
-            )
-            bpad_cap = max(
-                -(-pad_gentle(max(bpad, 1)) // base.wide_lanes)
-                * base.wide_lanes,
-                base.wide_lanes,
-            )
-
-    return dataclasses.replace(
-        base,
-        chunks_cap=pad_gentle(chunks_max),
-        wchunks_cap=pad_gentle(wchunks_max) if base.wide_min else 0,
-        out_cap=pad_gentle(out_max),
-        abpad_cap=abpad_cap,
-        bpad_cap=bpad_cap,
-        nchunks_cap=0,
-        al_min=0,
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -570,13 +463,13 @@ def _ring_chunks(plan: RingPlan, rank: int, a_val: torch.Tensor, dev,
     q_remb = bl + k * starts
     deltas = (q_posb, q_remb, a_row, owner)
     if packable:
-        posb, remb, rowc, own_c, avalb = _propagate_entry_consts(
-            starts, deltas + (_f32_bits(a_val),), st.chunks_cap)
-        aval_c = _bits_f32(avalb)
+        posb, remb, rowc, own_c, avalb = propagate_entry_consts(
+            starts, deltas + (f32_bits(a_val),), st.chunks_cap)
+        aval_c = bits_f32(avalb)
     else:
-        posb, remb, rowc, own_c = _propagate_entry_consts(
+        posb, remb, rowc, own_c = propagate_entry_consts(
             starts, deltas, st.chunks_cap)
-        hits = _scatter(st.chunks_cap, starts, _ones(starts), accumulate=True)
+        hits = scatter(st.chunks_cap, starts, ones(starts), accumulate=True)
         src = torch.clamp(torch.cumsum(hits, 0) - 1, 0, a_col.shape[0] - 1)
         aval_c = a_val[src]
     c_ids = torch.arange(st.chunks_cap, dtype=torch.int64, device=dev)
@@ -627,7 +520,7 @@ def dist_spgemm_ring(a: ShardedCSR, b: ShardedCSR, mesh: Mesh, *,
     b_va = b.vals[my].to(dev)
     cap_b = b_ci.shape[0]
     if packable:
-        block = (torch.stack([b_ci, _f32_bits(b_va)], dim=1),)
+        block = (torch.stack([b_ci, f32_bits(b_va)], dim=1),)
     else:
         block = (b_ci, b_va)
     # the resident super-buffer: H consecutive blocks of my subgroup,
@@ -660,7 +553,7 @@ def dist_spgemm_ring(a: ShardedCSR, b: ShardedCSR, mesh: Mesh, *,
         if packable:
             tile = cur[0][gidx]  # (k, cap_step, 2)
             colk = tile[..., 0]
-            valk = _bits_f32(tile[..., 1]) * aval_c[idxc][None, :]
+            valk = bits_f32(tile[..., 1]) * aval_c[idxc][None, :]
         else:
             colk = cur[0][gidx]
             valk = cur[1][gidx] * aval_c[idxc][None, :]

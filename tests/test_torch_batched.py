@@ -1,5 +1,5 @@
 """The PyTorch port's out-of-core path (ops/batched.py,
-parallel/dist.make_dist_local_plan) against the reference package on the
+ops/chunked.make_dist_local_plan) against the reference package on the
 same seeded inputs. Plans (row blocks, per-block nnz(C), C's structure,
 the chunked plan) equal exactly; float32 values within rtol 1e-4 / atol
 1e-5; float64 against the x64 scipy golden at rtol / atol 1e-12."""

@@ -90,7 +90,7 @@ def test_from_scipy_same_padding(capacity):
 
 def test_pad_bucket_and_pad_gentle_match():
     from benchmark_spgemm_using_csr_tpu.ops.chunked import pad_gentle as jpg
-    from benchmark_spgemm_using_csr_tpu_torch.ops.chunked import pad_gentle
+    from benchmark_spgemm_using_csr_tpu_torch.ops.stream import pad_gentle
 
     for n in [0, 1, 7, 8, 9, 100, 1023, 1024, 1025, 12345, 1 << 27]:
         assert tcsr.pad_bucket(n) == jcsr.pad_bucket(n)

@@ -1,9 +1,11 @@
-"""The PyTorch port's whole-stream run-sum + compaction against the
-reference's block-by-block ``lax.scan`` (ops/scancompact).
+"""The PyTorch port's whole-stream run-sum + compaction
+(``ops/stream.runsum_compact_scan``) against the reference's
+block-by-block ``lax.scan`` (its ops/scancompact), and against a plain
+NumPy run-sum.
 
 Keys, tail counts and compacted keys must be equal; run sums agree within
 rtol 1e-5 / atol 1e-6 (float32 sums of up to max_run terms, added in a
-different order)."""
+different order), and bit for bit where the values are small integers."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ from benchmark_spgemm_using_csr_tpu.ops.scancompact import (
     SENTINEL_U32 as J_SENTINEL,
     runsum_compact_scan as j_scan,
 )
-from benchmark_spgemm_using_csr_tpu_torch.ops.scancompact import (
+from benchmark_spgemm_using_csr_tpu_torch.ops.stream import (
     SENTINEL_U32,
     runsum_compact_scan,
 )
@@ -61,6 +63,57 @@ def test_matches_reference_scan(g, w, block, nkeys, max_run):
     np.testing.assert_array_equal(tk.numpy()[:n], jk[:n].view(np.uint32))
     np.testing.assert_allclose(tv.numpy()[:n], jv[:n], rtol=1e-5, atol=1e-6)
     assert (tk.numpy()[n:] == 0).all()
+
+
+def numpy_runsum(okey, val, w: int, out_cap: int):
+    """The plain run-sum: runs of equal keys within one w-slot group,
+    summed left to right; the valid runs' keys and sums compacted; the
+    inclusive count of run tails."""
+    s = okey.size
+    gid = np.arange(s) // w
+    head = np.ones(s, bool)
+    head[1:] = (okey[1:] != okey[:-1]) | (gid[1:] != gid[:-1])
+    starts = np.flatnonzero(head)
+    sums = np.add.reduceat(val, starts)
+    tail = np.zeros(s, bool)
+    tail[np.append(starts[1:], s) - 1] = True
+    kept = tail & (okey != J_SENTINEL)
+    live = okey[starts] != J_SENTINEL
+    keyc = np.zeros(out_cap, np.int64)
+    valc = np.zeros(out_cap, np.float32)
+    n = int(kept.sum())
+    keyc[:n] = okey[starts][live]
+    valc[:n] = sums[live]
+    return keyc, valc, np.cumsum(kept)
+
+
+@pytest.mark.parametrize("g,w_over,nkeys", [
+    (1, 0, 3),  # one group, w == S: no group id
+    (1, 5, 40),  # one group, w > S
+    (3, 0, 8),  # three sorted runs read as one group: runs cross them
+    (4, None, 8),  # four groups of w: the group id cuts equal keys apart
+    (8, None, 1000),
+])
+def test_one_group_matches_numpy_bit_for_bit(g, w_over, nkeys):
+    """One-group streams (w >= S) compare keys alone; grouped ones (w < S)
+    keep the group id. Small-integer float32 values make every summation
+    order exact, so keys, sums and tails_cum are held bit for bit."""
+    rng = np.random.default_rng(31 * g + nkeys)
+    w0 = 96
+    key, _ = grouped_stream(rng, g, w0, 0.9, nkeys)
+    s = key.size
+    if w_over is not None:  # one group: the whole stream, sorted
+        key = np.sort(key)
+    w = w0 if w_over is None else s + w_over
+    val = rng.integers(-4, 5, size=s).astype(np.float32)
+    val[key == J_SENTINEL] = 0
+    want_k, want_v, want_t = numpy_runsum(key.astype(np.int64), val, w, s)
+    tk, tv, tt = runsum_compact_scan(
+        torch.from_numpy(key.astype(np.int64)), torch.from_numpy(val),
+        w=w, out_cap=s, max_run=s)
+    np.testing.assert_array_equal(tt.numpy(), want_t)
+    np.testing.assert_array_equal(tk.numpy(), want_k)
+    assert tv.numpy().tobytes() == want_v.tobytes()
 
 
 def test_sentinel_is_the_reference_one():
