@@ -23,6 +23,14 @@ this module is chunked's plan and expansions, and ``make_dist_local_plan``,
 the same plan cut per row block (the distributed schedules and the
 out-of-core blocks).
 
+**The row-local route.** Where every row of the product fits kernel K6
+(``ops/rowlocal``: at most 8192 products a row, and shared memory for two
+blocks an SM) and no expansion mode is asked for, ``make_chunked_plan`` sets
+``rowlocal`` (K6's launch) and sizes C at ``pad_gentle(nnz(C))``, the
+exact count. The call then makes no product stream: K5 counts C's rows and
+K6 expands, orders, sums and writes each row on chip. Shard and block plans
+(``make_dist_local_plan``) keep the stream: a shard's C is not the whole C.
+
 What differs from the reference package's ``ops/chunked.py``:
 
 - The key is a single int64 for every (m, n), so the reference's 2-key
@@ -35,6 +43,8 @@ What differs from the reference package's ``ops/chunked.py``:
 - JAX's dropped out-of-range scatters become scatters into one extra dump
   slot past the end (``stream.scatter``); int32 delta propagation runs in
   int64, so nothing relies on two's-complement wraparound.
+- The row-local route (above): the field ``rowlocal``, C's exact
+  ``out_cap``, and each (row, col)'s sum in (value bits) order.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 
 from ..sparse.csr import CSR, host_view, pad_bucket
 from ..utils import profiling
+from . import rowlocal as rl
 from .stream import (
     F32_PACKABLE,
     aligned_table,
@@ -58,6 +69,7 @@ from .stream import (
     row_stream,
     scatter,
 )
+from .symbolic import exact_nnz_rows
 
 WIDE_LANES = 128  # padded-B table row width of the wide path
 
@@ -87,6 +99,9 @@ class ChunkedPlan:
     # the narrow k=1 substream. 0 = single mode.
     al_min: int = 0
     nchunks_cap: int = 0  # narrow-substream chunk capacity (k=1 chunks)
+    # the row-local route (module docstring): K6's launch, or None for the
+    # stream; on the route out_cap is pad_gentle(nnz(C))
+    rowlocal: rl.RowLocal | None = None
 
     @property
     def prod_cap(self) -> int:
@@ -96,17 +111,28 @@ class ChunkedPlan:
             + self.wchunks_cap * self.wide_lanes
         )
 
+    @property
+    def slots(self) -> int:
+        """Product slots a call holds: K6's staged products on the route,
+        else the stream's ``prod_cap``."""
+        return self.rowlocal.slots if self.rowlocal else self.prod_cap
+
 
 def make_chunked_plan(
     a: CSR, b: CSR, k: int | None = None, wide_min: int | None = None,
     wide_lanes: int = WIDE_LANES, al: int | None = None,
-    al_min: int | None = None,
+    al_min: int | None = None, rowlocal: bool = True,
 ) -> ChunkedPlan:
     """Host stage-2: chunk width, expansion mode and capacities.
 
     The mode choice prices the candidates with the reference package's
     cost constants, measured on a TPU v5e (not yet calibrated for the
-    H100), so the plan equals the reference's plan field for field."""
+    H100), so the stream's fields equal the reference's plan field for
+    field. With ``rowlocal`` and no explicit mode (k, wide_min, al,
+    al_min), a product whose rows all fit K6 takes the row-local route
+    (module docstring): its nnz(C) is counted per row
+    (``symbolic.exact_nnz_rows``: K5 on the card) and C sized at it."""
+    explicit_mode = any(x is not None for x in (k, wide_min, al, al_min))
     a_rowptr = host_view(a.rowptr).astype(np.int64)
     b_len = np.diff(host_view(b.rowptr).astype(np.int64))
     nnz_a = int(a_rowptr[-1])
@@ -235,10 +261,21 @@ def make_chunked_plan(
     # duplicates of one (row, col) are bounded by that A-row's nnz
     a_len_max = int(np.diff(a_rowptr).max(initial=1))
 
+    out_bound = min(total, int(np.minimum(nnz_ct, b.n).sum()))
+    route = None
+    if (rowlocal and not explicit_mode and a.m and b.vals.dtype == a.vals.dtype
+            and int(nnz_ct.max(initial=0)) <= rl.MAX_PRODUCTS):
+        nnz_c_rows = exact_nnz_rows(a, b)
+        route = rl.make_launch(nnz_ct, nnz_c_rows, a.vals.dtype)
+        if route is not None and route.smem <= rl.SMEM_MAX:
+            out_bound = int(nnz_c_rows.sum())
+        else:
+            route = None
+
     return ChunkedPlan(
         k=k,
         chunks_cap=pad_gentle(max(chunks, 1)),
-        out_cap=pad_gentle(max(min(total, int(np.minimum(nnz_ct, b.n).sum())), 1)),
+        out_cap=pad_gentle(max(out_bound, 1)),
         max_run=pad_bucket(a_len_max),
         wide_min=wide_min,
         wchunks_cap=wchunks_cap,
@@ -249,6 +286,7 @@ def make_chunked_plan(
         abpad_cap=abpad_cap,
         al_min=al_min,
         nchunks_cap=pad_gentle(max(nchunks, 1)) if (al and al_min) else 0,
+        rowlocal=route,
     )
 
 
@@ -269,7 +307,7 @@ def make_dist_local_plan(
     path's product-balanced blocks (``ops/batched``); default the uniform
     partition of ``parallel/dist.shard_rows``.
     """
-    base = make_chunked_plan(a, b)
+    base = make_chunked_plan(a, b, rowlocal=False)
     if base.al_min:  # mixed mode is never picked by the plan; keep it pure
         base = make_chunked_plan(a, b, al=base.al)
 
@@ -564,21 +602,28 @@ def _expand_wide(a: CSR, b: CSR, wide_min: int, wchunks_cap: int,
 
 
 def spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:
-    """C = A @ B through the chunked sort-based merge (module docstring);
-    on the card one CUDA graph per plan from the second call
-    (``ops/graphs``). Counts the product-stream slots the call expands,
-    sorts and run-sums (``chunked.slots``) and the slots C is sized and
-    compacted at (``chunked.out_slots``), eager or replayed."""
+    """C = A @ B through the chunked sort-based merge, or on the row-local
+    route through K6 (module docstring); on the card one CUDA graph per
+    plan from the second call (``ops/graphs``). Counts, eager or replayed,
+    the product slots the call holds (``chunked.slots``: the stream's
+    expanded, sorted and run-summed slots, or K6's staged products), the
+    slots C is sized at (``chunked.out_slots``) and, on the route, the rows
+    K6 takes (``chunked.rowlocal_rows``)."""
     from . import graphs
 
     with profiling.span("chunked.spgemm"):
-        profiling.count("chunked.slots", plan.prod_cap)
+        profiling.count("chunked.slots", plan.slots)
         profiling.count("chunked.out_slots", plan.out_cap)
+        if plan.rowlocal:
+            profiling.count("chunked.rowlocal_rows", a.m)
         return graphs.run(_spgemm_chunked, plan, a, b)
 
 
 def _spgemm_chunked(a: CSR, b: CSR, plan: ChunkedPlan) -> CSR:
     """The eager body of ``spgemm_chunked``: no value read on the host."""
+    if plan.rowlocal:
+        return rl.rowlocal_esc(a, b, plan.rowlocal, out_cap=plan.out_cap,
+                               max_run=plan.max_run)
     m, n = a.m, b.n
     if plan.al:
         row, col, val = _expand_aligned(

@@ -182,12 +182,14 @@ def cache_key(fn, plan, *args):
 
 def _counted():
     """The hand-written kernels' wrappers, whose ``launches`` count."""
-    from . import dia_convert, dia_kernels, kernels
+    from . import dia_convert, dia_kernels, kernels, rowlocal, symbolic
 
     return {"tile_sort_merge": kernels.tile_sort_merge,
             "bin_sort_compress": kernels.bin_sort_compress,
             "dia_spgemm_fused": dia_kernels.dia_spgemm_fused,
-            "dia_to_csr": dia_convert.dia_to_csr}
+            "dia_to_csr": dia_convert.dia_to_csr,
+            "symbolic_count": symbolic.nnz_rows,
+            "rowlocal_esc": rowlocal.rowlocal_esc}
 
 
 def _nbytes(tensors) -> int:

@@ -267,20 +267,30 @@ def runsum_compact_scan(okey, oval, *, w: int, out_cap: int, max_run: int,
 
 
 def merge_products(row, col, val, m: int, n: int, out_cap: int,
-                   max_run: int = 0, val_dtype=None, prodstart=None) -> CSR:
+                   max_run: int = 0, val_dtype=None, prodstart=None,
+                   by_value=None) -> CSR:
     """Stages 3-4 on a flat product stream (row == m marks invalid slots):
     sort by the int64 key ``row << cbits | col`` -> run-sum + compaction ->
     rowptr.
 
     prodstart: optional (m+1,) cumulative per-row product counts of the
     stream; when given, rowptr is one (m+1)-gather instead of an
-    (m+1)-needle binary search over the sorted stream."""
+    (m+1)-needle binary search over the sorted stream.
+
+    by_value: optional int64 keys of the values (one a slot); when given,
+    the sort is stable and lexicographic by (key, by_value), so every run's
+    sum is taken in one fixed order."""
     val_dtype = val_dtype or val.dtype
     cap = row.shape[0]
     cbits = max(int(n - 1).bit_length(), 1)
     sentinel = m << cbits  # above every valid key
     key = torch.where(row < m, (row << cbits) | col, sentinel)
-    key, perm = torch.sort(key)
+    if by_value is None:
+        key, perm = torch.sort(key)
+    else:
+        _, perm = torch.sort(by_value, stable=True)
+        key, second = torch.sort(key[perm], stable=True)
+        perm = perm[second]
     val = val[perm]
     keyc, val_c, cum_tails = runsum_compact_scan(
         key, val, w=cap, out_cap=out_cap, max_run=max_run or cap,

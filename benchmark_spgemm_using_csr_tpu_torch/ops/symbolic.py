@@ -122,6 +122,27 @@ def _pattern(x: CSR):
         shape=x.shape)
 
 
+def _pattern_product(a: CSR, b: CSR):
+    """scipy's product of the stored entries' patterns, on the host."""
+    pat_a = _pattern(a)
+    return pat_a @ (pat_a if b is a else _pattern(b))
+
+
+def exact_nnz_rows(a: CSR, b: CSR) -> np.ndarray:
+    """The exact structural nnz of every row of C = A @ B, on the host
+    (int64), as the chunked plan's row-local route needs it (span
+    ``plan.nnz_c``). On the card: K5's counts copied back once (counter
+    ``plan.nnz_c.device`` and one ``host.syncs``). On the CPU: the row
+    lengths of scipy's pattern product."""
+    with profiling.span("plan.nnz_c"):
+        if a.device.type == "cuda":
+            counts = nnz_rows(a, b).cpu()
+            profiling.count("plan.nnz_c.device")
+            profiling.count("host.syncs")
+            return counts.numpy().astype(np.int64)
+        return np.diff(_pattern_product(a, b).indptr).astype(np.int64)
+
+
 def exact_nnz_c(a: CSR, b: CSR) -> int:
     """The exact structural nnz(C) of C = A @ B, as the host plans need it
     (span ``plan.nnz_c``). On the card: K5's per-row counts summed on the
@@ -135,6 +156,4 @@ def exact_nnz_c(a: CSR, b: CSR) -> int:
             profiling.count("plan.nnz_c.device")
             profiling.count("host.syncs")
             return int(total)
-        pat_a = _pattern(a)
-        pat_b = pat_a if b is a else _pattern(b)
-        return int((pat_a @ pat_b).nnz)
+        return int(_pattern_product(a, b).nnz)

@@ -385,7 +385,7 @@ def make_ring_plan(
         [b_rowptr, np.full(k_pad - b.m, b_rowptr[-1], np.int64)]
     )
 
-    base = make_chunked_plan(a, b)
+    base = make_chunked_plan(a, b, rowlocal=False)
     k = base.al or base.k  # narrow chunk width from the global cost sweep
 
     rp = a_sh.rowptr.numpy()

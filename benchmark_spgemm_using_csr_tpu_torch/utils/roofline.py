@@ -217,10 +217,28 @@ def chunked_stage_models(
     product stream of ``plan.prod_cap`` slots, (key, value) pairs, each
     stage read-once. The metadata stage writes three constants a chunk
     (B position, remaining length, A value); the aligned and wide tables
-    are written once and read once."""
+    are written once and read once. On the row-local route, K5's count
+    (A's columns, a B column a product, two words a row) and K6 (A, a B
+    column and value a product, C), each read-once."""
     n = m if n is None else n
-    stream = plan.prod_cap
     acc, acc_t = _acc(itemsize)
+    if plan.rowlocal is not None:
+        products = plan.rowlocal.slots
+        return {
+            "symbolic_count": StageModel(
+                "symbolic_count",
+                bytes_moved=INDEX_BYTES * (nnz_a + products + 2 * m),
+                flops=0.0,
+            ),
+            "rowlocal_esc": StageModel(
+                "rowlocal_esc",
+                bytes_moved=csr_bytes(m, nnz_a, itemsize)
+                + products * (INDEX_BYTES + itemsize)
+                + csr_bytes(m, nnz_c, itemsize),
+                flops=2.0 * products, dtype=acc_t,
+            ),
+        }
+    stream = plan.prod_cap
     elem = _key_bytes(m, n) + acc
     chunks = plan.chunks_cap + plan.nchunks_cap + plan.wchunks_cap
     meta_out = 3 * 4 * chunks

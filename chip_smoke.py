@@ -8,7 +8,7 @@ Phases, each printing one line (or a few):
 2. the card's name and power limit, and its max SM clock (nvidia-smi);
 3. build the hand-written kernels K1 (``tile_sort_merge``), K2
    (``bin_sort_compress``), K3 (``dia_spgemm_fused``), K4
-   (``dia_to_csr``) and K5 (``symbolic_count``) from
+   (``dia_to_csr``), K5 (``symbolic_count``) and K6 (``rowlocal_esc``) from
    ``benchmark_spgemm_using_csr_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc process each, all at once; then the registers and local memory
    (spills) of every instantiation, as cuobjdump reads them (K3's must
@@ -55,7 +55,15 @@ Phases, each printing one line (or a few):
    the plain version and scipy's pattern product on the host; the grouped
    and tilepack plans counted by K5 against those scipy's count builds on
    the CPU, field for field (``python3 chip_smoke.py k5`` runs phases 1-3
-   and this one alone);
+   and this one alone); then K6 (``ops/rowlocal.rowlocal_esc``: K5's count,
+   the scan and K6) at fem_81k's full size and on circuit_262k's rows that
+   fit it (its hub rows keep its whole product on the stream): bit-equal to
+   its plain version run on the card, timed in batches of 10 and alone
+   (CUDA events, L2 flushed) and by the profiler (K6 and K5 apart), beside
+   its byte bound and the plain version; then ``spgemm_chunked`` on the
+   route eager and as a graph replay (bit-equal to eager), beside the
+   stream's eager call on the same operands (``python3 chip_smoke.py k6``
+   runs phases 1-3 and this one alone);
 7. the dispatcher's pick on every suite matrix (which it sends to dia);
    the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
@@ -200,6 +208,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -551,6 +560,14 @@ def resource_usage(build) -> None:
           + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
     if len(usage) != 4 or any(loc for *_, loc in usage):
         raise AssertionError(f"K5 kernels: {usage}")
+    k6 = re.compile(r"rowlocal_esc_kernelI([fd])E")
+    usage = sorted(("double" if m.group(1) == "d" else "float", reg, loc)
+                   for fn, reg, loc in res_usage(build, "rowlocal_esc")
+                   for m in [k6.search(fn)] if m)
+    phase("csrc/rowlocal_esc.cu registers (local bytes) per thread: "
+          + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
+    if len(usage) != 2 or any(loc for *_, loc in usage):
+        raise AssertionError(f"K6 kernels: {usage}")
 
 
 def k3_instance(fn: str) -> str:
@@ -1013,11 +1030,175 @@ def time_k5(port, flush) -> dict:
     return out
 
 
+K6_MATRICES = ("fem_81k", "circuit_262k")
+
+
+def k6_operands(port, name: str):
+    """(A, B, plan, what) on the card for K6 at the configuration's full
+    size: A·A where the chunked plan takes the row-local route (fem_81k);
+    else (circuit_262k: 128 hub rows pass 8,192 products, so its whole
+    product keeps the stream) the rows of A that fit K6, times A."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        chunked,
+        rowlocal,
+        stream,
+    )
+
+    sa, cfg = bench_matrix(name)
+    a = port.CSR.from_scipy(sa, device="cuda")
+    plan = chunked.make_chunked_plan(a, a)
+    if plan.rowlocal is not None:
+        return a, a, plan, f"A·A ({name})", cfg
+    blen = np.diff(sa.indptr)
+    cum = np.concatenate([[0], np.cumsum(blen[sa.indices])])
+    products = cum[sa.indptr[1:]] - cum[sa.indptr[:-1]]
+    pat = sa.astype(bool)
+    c_rows = np.diff((pat @ pat).indptr)
+    need = rowlocal.smem_bytes(products, c_rows, False)
+    keep = np.flatnonzero((products <= rowlocal.MAX_PRODUCTS)
+                          & (need <= rowlocal.BLOCK_SMEM_MAX))
+    sub = port.CSR.from_scipy(sa[keep], device="cuda")
+    plan = chunked.make_chunked_plan(sub, a)
+    if plan.rowlocal is None:  # more shared memory than two blocks an SM
+        plan = dataclasses.replace(
+            plan, out_cap=stream.pad_gentle(int(c_rows[keep].sum())),
+            rowlocal=rowlocal.make_launch(products[keep], c_rows[keep],
+                                          torch.float32))
+    what = (f"{name}: its whole product keeps the stream; its {keep.size} "
+            f"rows (of {sa.shape[0]}) that fit K6 times A, one block an SM "
+            f"(the plan keeps these on the stream too)")
+    return sub, a, plan, what, None
+
+
+def k6_bound(a, b, c_nnz: int, products: int, itemsize: int):
+    """(bound_ms, GB): K6's least traffic at the HBM rate: A once (column
+    and value), a B column and value a product, C once (column and value):
+    (4 + s)·(nnz_a + products + nnz(C))."""
+    nbytes = (4 + itemsize) * (int(a.rowptr[-1]) + products + c_nnz)
+    return nbytes / CHIP.hbm_bytes_per_s * 1e3, nbytes / 1e9
+
+
+def time_k6(port, flush) -> dict:
+    """K6 (``ops/rowlocal.rowlocal_esc``: K5's count, the scan, K6) at the
+    benchmark's full sizes (``k6_operands``): bit-equal to its plain version
+    (run on the card), timed (batches of 10 and alone, CUDA events, L2
+    flushed; the profiler's device time of K6 and of K5), beside its byte
+    bound and the plain version; then the call as the cell makes it,
+    ``spgemm_chunked`` on the route: eager, its graph's replays (each
+    bit-equal to the eager call), and the stream's eager call on the same
+    operands (``rowlocal=False``), its structure equal and its values
+    within the float32 tolerance."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        chunked,
+        graphs,
+        rowlocal,
+    )
+
+    out = {}
+    for name in K6_MATRICES:
+        a, b, plan, what, cfg = k6_operands(port, name)
+        route = plan.rowlocal
+        fn = functools.partial(rowlocal.rowlocal_esc, a, b, route,
+                               out_cap=plan.out_cap, max_run=plan.max_run)
+        before = rowlocal.rowlocal_esc.launches
+        got = fn()
+        launched = rowlocal.rowlocal_esc.launches - before
+        plain = functools.partial(rowlocal.rowlocal_esc_plain, a, b,
+                                  out_cap=plan.out_cap, max_run=plan.max_run)
+        want = plain()
+        same = (torch.equal(got.rowptr, want.rowptr)
+                and torch.equal(got.colidx, want.colidx)
+                and torch.equal(got.vals.view(torch.int32),
+                                want.vals.view(torch.int32)))
+        if not same:
+            raise AssertionError(f"K6 on {what}: not bit-equal to its plain "
+                                 f"version")
+        c_nnz = int(got.rowptr[-1])
+        if cfg is not None and c_nnz != int(cfg["nnz_c"]):
+            raise AssertionError(f"K6 on {name}: nnz(C) {c_nnz}")
+        del want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ms = cuda_ms(fn, flush=flush, batch=10)
+        alone_ms = cuda_ms(fn, flush=flush)
+        k6_ms = profiler_ms(fn, "rowlocal_esc_kernel", flush)
+        k5_parts = [profiler_ms(fn, k, flush) for k in K5_KERNELS]
+        k5_ms = sum(v for v in k5_parts if v is not None)
+        plain_ms = cuda_ms(plain, reps=3, flush=flush)
+        torch.cuda.empty_cache()
+        products = route.slots
+        bound_ms, gb = k6_bound(a, b, c_nnz, products, 4)
+        share = (f"{bound_ms / k6_ms:.1%} of K6's device time"
+                 if k6_ms else "K6's device time not recorded")
+        # the call as the cell makes it
+        graphs.clear()
+        call = functools.partial(chunked.spgemm_chunked, a, b, plan)
+        with graphs.eager():
+            eager = call()
+        for _ in range(3):  # eager, capture, replay
+            c = call()
+            torch.cuda.synchronize()
+            if not (torch.equal(c.colidx, eager.colidx)
+                    and torch.equal(c.vals.view(torch.int32),
+                                    eager.vals.view(torch.int32))):
+                raise AssertionError(f"{what}: a call of the graph differs "
+                                     f"from the eager call")
+        replay_ms = cuda_ms(call, reps=10)
+        with graphs.eager():
+            eager_ms = cuda_ms(call, reps=5)
+        graphs.clear()
+        del c, got
+        torch.cuda.empty_cache()
+        splan = chunked.make_chunked_plan(a, b, rowlocal=False)
+        stream = functools.partial(chunked.spgemm_chunked, a, b, splan)
+        with graphs.eager():
+            s_c = stream()
+            torch.cuda.synchronize()
+            if not (torch.equal(s_c.rowptr, eager.rowptr) and torch.equal(
+                    s_c.colidx[:c_nnz], eager.colidx[:c_nnz])):
+                raise AssertionError(f"{what}: the stream's structure "
+                                     f"differs from K6's")
+            err = (s_c.vals[:c_nnz] - eager.vals[:c_nnz]).abs().max().item()
+            del s_c
+            stream_ms = cuda_ms(stream, reps=3)
+        del eager
+        torch.cuda.empty_cache()
+        phase(f"K6 on {what} (m {a.m}, products {products}, nnz(C) {c_nnz}; "
+              f"{route.threads} threads and {route.smem} B of shared memory "
+              f"a block, max_run {plan.max_run}): bit-equal to its plain "
+              f"version; K5 + scan + K6 {ms:.4f} ms in batches of 10 "
+              f"({alone_ms:.4f} alone), device time K6 "
+              + ("not recorded" if k6_ms is None else f"{k6_ms:.4f}")
+              + f" ms, K5 {k5_ms:.4f} ms (profiler, L2 flushed); {launched} "
+              f"K6 launch a call; bound {bound_ms * 1e3:.1f} us ({gb:.3f} "
+              f"GB, {share}); plain version {plain_ms:.2f} ms; a call's "
+              f"device memory {peak_mib:.1f} MiB above its inputs; "
+              f"spgemm_chunked on the route: eager {eager_ms:.3f} ms, graph "
+              f"replay {replay_ms:.3f} ms (bit-equal to eager); the stream's "
+              f"eager call {stream_ms:.3f} ms (same structure, values within "
+              f"{err:.3g})")
+        out[name] = dict(ms=ms, alone_ms=alone_ms, profiler_ms=k6_ms,
+                         k5_ms=k5_ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                         replay_ms=replay_ms, eager_ms=eager_ms,
+                         stream_ms=stream_ms)
+        del a, b
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the paths ---------------------------------------------------------------
 
 
 def counts(kernels, dia_kernels) -> dict:
-    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert, symbolic
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        dia_convert,
+        rowlocal,
+        symbolic,
+    )
 
     return {
         "tile_sort_merge": kernels.tile_sort_merge.launches,
@@ -1025,17 +1206,23 @@ def counts(kernels, dia_kernels) -> dict:
         "dia_spgemm_fused": dia_kernels.dia_spgemm_fused.launches,
         "dia_to_csr": dia_convert.dia_to_csr.launches,
         "symbolic_count": symbolic.nnz_rows.launches,
+        "rowlocal_esc": rowlocal.rowlocal_esc.launches,
     }
 
 
 def reset_counts(kernels, dia_kernels) -> None:
-    from benchmark_spgemm_using_csr_tpu_torch.ops import dia_convert, symbolic
+    from benchmark_spgemm_using_csr_tpu_torch.ops import (
+        dia_convert,
+        rowlocal,
+        symbolic,
+    )
 
     kernels.tile_sort_merge.launches = 0
     kernels.bin_sort_compress.launches = 0
     dia_kernels.dia_spgemm_fused.launches = 0
     dia_convert.dia_to_csr.launches = 0
     symbolic.nnz_rows.launches = 0
+    rowlocal.rowlocal_esc.launches = 0
 
 
 def numeric_fn(port, a, method):
@@ -2852,6 +3039,9 @@ def main() -> int:
     if sys.argv[1:] == ["k5"]:
         time_k5(port, flush)
         return 0
+    if sys.argv[1:] == ["k6"]:
+        time_k6(port, flush)
+        return 0
     # 4-6. each kernel against its plain version, and timed
     k1 = time_k1(port, kernels, sm_mhz * 1e6)
     k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(kernels, rng))
@@ -2865,6 +3055,7 @@ def main() -> int:
     k4 = time_k4(port, dia_convert, flush)
     k5_all = time_k5(port, flush)
     k5 = dict(k5_all["circuit_262k"], max_abs_err=0)
+    k6 = dict(time_k6(port, flush)["fem_81k"], max_abs_err=0)
     del flush
     lap("phases 1-6")
     # 7-9. the paths; only their launches count
@@ -2930,6 +3121,9 @@ def main() -> int:
         kernel_entry("symbolic_count", "symbolic_count.cu",
                      "ops/grouped.py:322 (scipy's pattern product, on the "
                      "host)", launches, k5),
+        kernel_entry("rowlocal_esc", "rowlocal_esc.cu",
+                     "none (ops/chunked's product stream: its sort, "
+                     "run-sum and compaction)", launches, k6),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -5,7 +5,8 @@ path that its cell ``fem_81k.reuse`` runs.
   fem_irregular.py``) makes the port's ``fem_irregular`` array for array.
 - At the full size, on the host alone: the configuration's counts, the
   dispatcher's pick (chunked) and the plan's mode and capacities, which
-  PERF.md §4 records.
+  PERF.md §4 records: the row-local route (kernel K6) and C sized at
+  ``pad_gentle(nnz(C))``.
 - On the generator's small member, the chunked numeric phase in the
   full-size plan's mode (aligned, al = 16, scatter-SET): its plan and
   output against the reference package's on the same CSR, and its output
@@ -14,6 +15,8 @@ path that its cell ``fem_81k.reuse`` runs.
   full size's route; ``auto`` picks grouped at the small size), traced and
   plain: the reuse driver's chunked branch and the chunked counters.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,11 +37,15 @@ from test_torch_pipelines import assert_same_csr, assert_same_plan, bridge
 torch.set_num_threads(2)
 
 CELL = "fem_81k.reuse"
-# the full-size plan (ChunkedPlan fields) that PERF.md §4 records
+# the full-size plan (ChunkedPlan fields) that PERF.md §4 records: the
+# stream's fields, and on the row-local route C at pad_gentle(26,665,092)
 FULL_PLAN = {"k": 16, "al": 16, "al_min": 0, "wide_min": 0,
              "scatter_set": True, "max_run": 128, "chunks_cap": 31_457_280,
-             "abpad_cap": 6_815_744, "out_cap": 436_207_616}
+             "abpad_cap": 6_815_744, "out_cap": 27_262_976}
 FULL_PROD_CAP = 503_316_480
+# K6's launch at the full size: the widest row's 6,426 products and 375
+# columns, 512 threads; every product staged once
+FULL_ROUTE = {"smem": 99_096, "threads": 512, "slots": 429_654_051}
 FULL_DIAGONALS = 11_004  # more than dia's gate of 4,096
 
 
@@ -87,6 +94,8 @@ def test_the_full_size_pick_and_plan_are_the_recorded_ones():
     plan = chunked.make_chunked_plan(a, a)
     assert {k: getattr(plan, k) for k in FULL_PLAN} == FULL_PLAN
     assert plan.prod_cap == FULL_PROD_CAP
+    assert dataclasses.asdict(plan.rowlocal) == FULL_ROUTE
+    assert plan.slots == counts["products"]
 
 
 def test_chunked_in_the_full_size_mode_matches_the_reference():
@@ -132,7 +141,9 @@ def test_the_cell_passes_through_the_drivers_chunked_branch(monkeypatch,
     rowptr, colidx = d.host[:2]
     products = int(np.diff(rowptr)[colidx].sum())
     metrics = {k: v["value"] for k, v in r["metrics"].items()}
+    assert plan.rowlocal is not None  # every row fits K6
     assert metrics["chunked.slot_share"] == pytest.approx(
-        100 * products / plan.prod_cap)
+        100 * products / plan.slots) == pytest.approx(100.0)
     assert metrics["chunked.out_slots_m"] == pytest.approx(
         plan.out_cap / 1e6)
+    assert metrics["chunked.rowlocal_rows_k"] == pytest.approx(a.m / 1e3)

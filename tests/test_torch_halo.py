@@ -155,8 +155,12 @@ def test_halo_plan_equals_reference(name, p, balanced):
                                       np.asarray(getattr(want, f)), f)
     for f in ("send_payload_cap", "halo_nnz_cap", "shape_b"):
         assert getattr(got, f) == getattr(want, f), f
-    for f in (f.name for f in dataclasses.fields(ChunkedPlan)):
+    # the reference's fields; the halo's local plan keeps the stream (the
+    # row-local route, a field the reference lacks, is None)
+    for f in (f.name for f in dataclasses.fields(ChunkedPlan)
+              if f.name != "rowlocal"):
         assert getattr(got.local_plan, f) == getattr(want.local_plan, f), f
+    assert got.local_plan.rowlocal is None
 
 
 def test_halo_plan_traffic_less_than_replication():

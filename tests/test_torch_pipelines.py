@@ -7,7 +7,9 @@ against the reference package's on the same inputs.
   order);
 - host plans equal field for field (the port's plans carry a subset of
   the reference's fields: the TPU-only ones are not ported), and the
-  schedules' index arrays equal exactly;
+  schedules' index arrays equal exactly; a chunked plan on the row-local
+  route (a field the reference lacks) sizes C at ``pad_gentle(nnz(C))``
+  in place of the reference's bound, held apart;
 - float64 (grouped) against the x64 scipy oracle at rtol/atol 1e-12.
 """
 import dataclasses
@@ -25,8 +27,9 @@ from benchmark_spgemm_using_csr_tpu.utils import generators as jgen
 import benchmark_spgemm_using_csr_tpu_torch as T
 from benchmark_spgemm_using_csr_tpu_torch.ops import chunked as tc
 from benchmark_spgemm_using_csr_tpu_torch.ops import grouped as tg
-from benchmark_spgemm_using_csr_tpu_torch.ops import kernels
+from benchmark_spgemm_using_csr_tpu_torch.ops import kernels, rowlocal
 from benchmark_spgemm_using_csr_tpu_torch.ops import tilepack as tt
+from benchmark_spgemm_using_csr_tpu_torch.ops.stream import pad_gentle
 from benchmark_spgemm_using_csr_tpu_torch.utils import generators as tgen
 from benchmark_spgemm_using_csr_tpu_torch.utils.oracle import (
     assert_csr_equal,
@@ -77,9 +80,14 @@ def assert_same_csr(j, t):
 
 
 def assert_same_plan(jp, tp):
+    """The port's plan equals the reference's on the reference's fields;
+    on the chunked plan's row-local route, but for ``out_cap`` (C's exact
+    size there, held by the caller)."""
     jd, td = dataclasses.asdict(jp), dataclasses.asdict(tp)
-    assert set(td) <= set(jd)
-    assert {k: jd[k] for k in td} == td
+    own = {"rowlocal"} | ({"out_cap"} if td.get("rowlocal") else set())
+    assert set(td) - own <= set(jd)
+    assert {k: jd[k] for k in td if k not in own} == {
+        k: v for k, v in td.items() if k not in own}
 
 
 def assert_same_arrays(js, ts, names):
@@ -95,14 +103,49 @@ def test_esc(name):
                     T.spgemm(ta, tb, method="esc"))
 
 
+# the matrices whose chunked plan takes the row-local route (kernel K6);
+# the circuit's hub rows and the power law's long rows need more shared
+# memory than two of K6's blocks an SM hold, so those keep the stream
+ROWLOCAL = sorted(set(MATRICES) - {"circuit", "powerlaw_small"})
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_chunked(name):
+    """The plan and C against the reference's; on the row-local route the
+    CPU runs K6's plain version and C is sized at pad_gentle(nnz(C)). K6's
+    plain version on every matrix, routed or not, against the reference's
+    C and scipy's."""
     ja, jb, ta, tb = operands(name)
     jp, tp = jc.make_chunked_plan(ja, jb), tc.make_chunked_plan(ta, tb)
     assert_same_plan(jp, tp)
     t = tc.spgemm_chunked(ta, tb, tp)
-    assert_same_csr(jc.spgemm_chunked(ja, jb, jp), t)
+    want = jc.spgemm_chunked(ja, jb, jp)
+    nnz = int(t.rowptr[-1])
+    assert (tp.rowlocal is not None) == (name in ROWLOCAL)
+    if tp.rowlocal is not None:
+        assert tp.out_cap == pad_gentle(nnz) == t.capacity
+    else:
+        assert tp.out_cap == jp.out_cap
+    assert_same_csr(want, t)
     assert_csr_equal(t, spgemm_reference(ta, tb), **F32_TOL)
+    plain = rowlocal.rowlocal_esc_plain(ta, tb, out_cap=pad_gentle(nnz),
+                                        max_run=tp.max_run)
+    assert_same_csr(want, plain)
+    assert_csr_equal(plain, spgemm_reference(ta, tb), **F32_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_chunked_stream(name):
+    """The stream of the same plans (``rowlocal=False``): the reference's
+    plan field for field, C equal to the reference's."""
+    ja, jb, ta, tb = operands(name)
+    jp = jc.make_chunked_plan(ja, jb)
+    tp = tc.make_chunked_plan(ta, tb, rowlocal=False)
+    assert tp.rowlocal is None
+    assert_same_plan(jp, tp)
+    assert tp.out_cap == jp.out_cap
+    assert_same_csr(jc.spgemm_chunked(ja, jb, jp),
+                    tc.spgemm_chunked(ta, tb, tp))
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))

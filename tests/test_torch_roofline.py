@@ -132,8 +132,22 @@ def test_plan_aware_stages_read_once(method, name):
     c = T.spgemm(a, a, method="esc")
     nnz_a, nnz_c, products = _counts(a)
     models, bound = _plan_models(a, c, method)
+    operands = 2 * R.csr_bytes(a.m, nnz_a) + R.csr_bytes(a.m, nnz_c)
+    chip = R.H100_SXM
     if method == "chunked":
+        # the plan takes the row-local route: K5's count and K6, each
+        # product read once (column and value) and summed (two flops), at
+        # or above the bound; then the stream's model on the same plan
+        # without the route
         plan = T.make_chunked_plan(a, a)
+        assert set(models) == {"symbolic_count", "rowlocal_esc"}
+        assert models["rowlocal_esc"].flops == 2 * plan.slots == 2 * products
+        for stage in models.values():
+            assert 0 < stage.bytes_moved <= plan.slots * 12 + operands
+        assert bound.sol_time_s(chip) <= sum(
+            s.sol_time_s(chip) for s in models.values())
+        plan = T.make_chunked_plan(a, a, rowlocal=False)
+        models = R.chunked_stage_models(plan, nnz_a, nnz_a, a.m, nnz_c)
         stream = plan.prod_cap
         extra = (plan.abpad_cap + plan.bpad_cap) * 8 + 12 * (
             plan.chunks_cap + plan.nchunks_cap + plan.wchunks_cap)
@@ -146,11 +160,9 @@ def test_plan_aware_stages_read_once(method, name):
         plan = T.make_tilepack_plan(a, a).plan
         stream, elem = plan.t_cap * plan.w, 12
         extra = plan.abpad_cap * 8 + 8 * plan.s_cap + plan.t_cap * plan.wlr * 4
-    operands = 2 * R.csr_bytes(a.m, nnz_a) + R.csr_bytes(a.m, nnz_c)
     for stage in models.values():
         assert 0 < stage.bytes_moved <= 2 * (stream * elem + extra) + operands
         assert stage.flops <= stream
-    chip = R.H100_SXM
     total = sum(s.sol_time_s(chip) for s in models.values())
     assert bound.sol_time_s(chip) <= total
     assert bound.flops == 2 * products

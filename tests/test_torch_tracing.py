@@ -97,8 +97,10 @@ def _parts(out):
     return [out.rowptr, out.colidx, out.vals]
 
 
-# ``_fem_plan``'s prod_cap and out_cap
-CHUNKED_SLOTS, CHUNKED_OUT_SLOTS = 2621440, 425984
+# ``_fem_plan``'s slots and out_cap, and its rows: every row fits kernel K6,
+# so the plan takes the row-local route (its products staged, C at its
+# exact size)
+CHUNKED_SLOTS, CHUNKED_OUT_SLOTS, CHUNKED_ROWS = 2077461, 131072, 648
 # span -> calls for one call of each path on the CPU; counters besides
 EXPECTED = {
     # the grouped plan counts nnz(C) (on the CPU with scipy; tilepack's
@@ -112,10 +114,11 @@ EXPECTED = {
     "dia": ({"dia.spgemm": 1, "dia.to_csr": 1},
             {"host.syncs": TO_CSR_SYNCS}),
     "refresh": ({"amg.refresh": 1, "graphs.eager": 1}, {}),
-    # the plan's prod_cap and out_cap
+    # the plan's slots, out_cap and the rows K6 takes
     "chunked": ({"chunked.spgemm": 1, "graphs.eager": 1},
                 {"chunked.slots": CHUNKED_SLOTS,
-                 "chunked.out_slots": CHUNKED_OUT_SLOTS}),
+                 "chunked.out_slots": CHUNKED_OUT_SLOTS,
+                 "chunked.rowlocal_rows": CHUNKED_ROWS}),
 }
 PATHS = {"auto": _auto, "dia": _dia, "refresh": _refresh, "chunked": _chunked}
 
@@ -287,7 +290,7 @@ def test_a_span_reads_none_and_a_counter_zero_when_others_fired(monkeypatch,
 
 def test_the_chunked_counters_grow_by_the_plan_every_call():
     _, plan = _fem_plan()
-    assert (plan.prod_cap, plan.out_cap) == (CHUNKED_SLOTS, CHUNKED_OUT_SLOTS)
+    assert (plan.slots, plan.out_cap) == (CHUNKED_SLOTS, CHUNKED_OUT_SLOTS)
     call = _chunked()
     call()
     assert profiling.totals() == {"spans": {}, "counters": {}}
@@ -297,7 +300,8 @@ def test_the_chunked_counters_grow_by_the_plan_every_call():
         got = profiling.totals()
         assert got["spans"]["chunked.spgemm"][0] == k
         assert got["counters"] == {"chunked.slots": k * CHUNKED_SLOTS,
-                                   "chunked.out_slots": k * CHUNKED_OUT_SLOTS}
+                                   "chunked.out_slots": k * CHUNKED_OUT_SLOTS,
+                                   "chunked.rowlocal_rows": k * CHUNKED_ROWS}
 
 
 # the chunked readers: (counter, its reading for 4 calls, the value);
@@ -305,6 +309,7 @@ def test_the_chunked_counters_grow_by_the_plan_every_call():
 CHUNKED_READERS = {
     "chunked.slot_share": ("chunked.slots", 4 * 4_000_000, 75.0),
     "chunked.out_slots_m": ("chunked.out_slots", 4 * 2_500_000, 2.5),
+    "chunked.rowlocal_rows_k": ("chunked.rowlocal_rows", 4 * 81_000, 81.0),
 }
 
 
@@ -448,6 +453,7 @@ def test_a_chunked_replay_counts_its_plans_slots():
             "chunked.spgemm": k, "graphs.replay": k}
         assert got["counters"]["chunked.slots"] == k * CHUNKED_SLOTS
         assert got["counters"]["chunked.out_slots"] == k * CHUNKED_OUT_SLOTS
+        assert got["counters"]["chunked.rowlocal_rows"] == k * CHUNKED_ROWS
     graphs.clear()
 
 
