@@ -342,11 +342,15 @@ def _new_plan(a, b, b_len, al, lanes, cs, g_cap, prod_cap, cbits, lbits,
 
 def spgemm_grouped(a: CSR, b: CSR, sched: GroupedSchedule) -> CSR:
     """C = A @ B via grouped per-row sorts (module docstring); on the card
-    one CUDA graph per plan from the second call (``ops/graphs``)."""
+    one CUDA graph per plan from the second call (``ops/graphs``). Counts,
+    eager or replayed, the product slots the call expands, sorts and
+    run-sums (``grouped.slots``: the plan's ``prod_cap``)."""
     from . import graphs
 
-    return graphs.run(_spgemm_grouped, sched.plan, a, b, sched.slot0,
-                      sched.first_rank, sched.sorted_off, sched.fill_end)
+    with profiling.span("grouped.spgemm"):
+        profiling.count("grouped.slots", sched.plan.prod_cap)
+        return graphs.run(_spgemm_grouped, sched.plan, a, b, sched.slot0,
+                          sched.first_rank, sched.sorted_off, sched.fill_end)
 
 
 def _spgemm_grouped(a: CSR, b: CSR, slot0, first_rank, sorted_off, fill_end,

@@ -23,13 +23,15 @@ The spans and counters the program records (PERF.md §3 lists them, with
 the metric that reads each): spans ``api.spgemm``, ``api.plan``,
 ``dispatch.choose``, ``dispatch.stats``, ``dispatch.estimate.<method>``,
 ``host.copy``, ``graphs.eager``, ``graphs.capture``, ``graphs.replay``,
-``dia.spgemm``, ``dia.to_csr``, ``amg.refresh``, ``chunked.spgemm``;
+``dia.spgemm``, ``dia.to_csr``, ``amg.refresh``, ``chunked.spgemm``,
+``grouped.spgemm``;
 counters ``graphs.copy_bytes`` (bytes a replay copies into its static
 inputs and clones out of its outputs), ``host.d2h_bytes`` (bytes
 ``host_view`` copies to the host), ``host.syncs`` (the points where the
 program blocks the host on the device: a host copy, a scalar read, a
 shape-dependent op), ``chunked.slots`` and ``chunked.out_slots`` (the
-product-stream and output slots of a chunked call's plan).
+product-stream and output slots of a chunked call's plan),
+``grouped.slots`` (the product slots of a grouped call's plan).
 """
 from __future__ import annotations
 

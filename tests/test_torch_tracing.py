@@ -6,8 +6,8 @@ On the CPU: the recorder is off unless a profiler records or
 benchmark cells' paths reach it; the spans are the profiler's host
 annotations; tracing changes no output. The tests marked ``cuda`` hold
 the counters against the card (the bytes a graph replay copies, the
-syncs ``torch.cuda.set_sync_debug_mode`` reports, the chunked plan's
-slots a replay counts); run them there
+syncs ``torch.cuda.set_sync_debug_mode`` reports, the chunked and grouped
+plans' slots a capture and a replay count); run them there
 without the repository's conftest:
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest -q
@@ -101,16 +101,20 @@ def _parts(out):
 # so the plan takes the row-local route (its products staged, C at its
 # exact size)
 CHUNKED_SLOTS, CHUNKED_OUT_SLOTS, CHUNKED_ROWS = 2077461, 131072, 648
+# the grouped plan's prod_cap on ``_circuit()``: the slots its call expands,
+# sorts and run-sums
+GROUPED_SLOTS = 294480
 # span -> calls for one call of each path on the CPU; counters besides
 EXPECTED = {
     # the grouped plan counts nnz(C) (on the CPU with scipy; tilepack's
     # estimate refuses the circuit before its count)
     "auto": ({"api.spgemm": 1, "dispatch.choose": 1, "dispatch.stats": 1,
               **{f"dispatch.estimate.{m}": 1 for m in ESTIMATES},
-              "api.plan": 1, "plan.nnz_c": 1, "graphs.eager": 1},
+              "api.plan": 1, "plan.nnz_c": 1, "grouped.spgemm": 1,
+              "graphs.eager": 1},
              # the trim reads nnz(C) twice; the grouped schedule's four
-             # copies to the device
-             {"host.syncs": 6}),
+             # copies to the device; the plan's product slots
+             {"host.syncs": 6, "grouped.slots": GROUPED_SLOTS}),
     "dia": ({"dia.spgemm": 1, "dia.to_csr": 1},
             {"host.syncs": TO_CSR_SYNCS}),
     "refresh": ({"amg.refresh": 1, "graphs.eager": 1}, {}),
@@ -304,10 +308,38 @@ def test_the_chunked_counters_grow_by_the_plan_every_call():
                                    "chunked.rowlocal_rows": k * CHUNKED_ROWS}
 
 
-# the chunked readers: (counter, its reading for 4 calls, the value);
-# slot_share's work is 3e6 products a call
+def _grouped(device="cpu", n=2048):
+    """A planned grouped call (the one-shot cells' numeric phase) on
+    ``_circuit``."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import grouped
+
+    a = _circuit(device, n)
+    sched = grouped.make_grouped_plan(a, a)
+    return sched, lambda: grouped.spgemm_grouped(a, a, sched)
+
+
+def test_the_grouped_counter_grows_by_the_plans_slots_every_call():
+    """Eager on the CPU: each call adds its plan's ``prod_cap`` once and
+    fires the span once; with no profiler recording, neither."""
+    sched, call = _grouped()
+    assert sched.plan.prod_cap == GROUPED_SLOTS
+    call()
+    assert profiling.totals() == {"spans": {}, "counters": {}}
+    for k in (1, 2, 3):
+        with profiling.recording():
+            call()
+        got = profiling.totals()
+        assert {n: c for n, (c, _) in got["spans"].items()} == {
+            "grouped.spgemm": k, "graphs.eager": k}
+        assert got["counters"] == {"grouped.slots": k * GROUPED_SLOTS}
+
+
+# the readers of a plan's counters, chunked and grouped: (counter, its
+# reading for 4 calls, the value); a slot share's work is 3e6 products a
+# call
 CHUNKED_READERS = {
     "chunked.slot_share": ("chunked.slots", 4 * 4_000_000, 75.0),
+    "oneshot.grouped.slot_share": ("grouped.slots", 4 * 5_000_000, 60.0),
     "chunked.out_slots_m": ("chunked.out_slots", 4 * 2_500_000, 2.5),
     "chunked.rowlocal_rows_k": ("chunked.rowlocal_rows", 4 * 81_000, 81.0),
 }
@@ -454,6 +486,32 @@ def test_a_chunked_replay_counts_its_plans_slots():
         assert got["counters"]["chunked.slots"] == k * CHUNKED_SLOTS
         assert got["counters"]["chunked.out_slots"] == k * CHUNKED_OUT_SLOTS
         assert got["counters"]["chunked.rowlocal_rows"] == k * CHUNKED_ROWS
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_a_grouped_capture_and_replay_count_their_plans_slots():
+    """On the card the second call captures and the later ones replay:
+    each adds the plan's slots once, and none blocks the host (the plan's
+    copies were made before)."""
+    need_card()
+    graphs.clear()
+    sched, call = _grouped("cuda", 1 << 14)
+    slots = sched.plan.prod_cap
+    with profiling.recording():
+        call()  # eager
+    torch.cuda.synchronize()
+    assert profiling.totals()["counters"] == {"grouped.slots": slots}
+    for k, branch in ((2, "graphs.capture"), (3, "graphs.replay")):
+        with profiling.recording():
+            call()
+        torch.cuda.synchronize()
+        got = profiling.totals()
+        assert got["spans"]["grouped.spgemm"][0] == k
+        assert got["spans"][branch][0] >= 1
+        assert got["counters"]["grouped.slots"] == k * slots
+        assert "host.syncs" not in got["counters"]
+    assert graphs.info()["captures"] == 1
     graphs.clear()
 
 
