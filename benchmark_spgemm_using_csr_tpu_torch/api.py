@@ -21,14 +21,14 @@ def resolve_method(a: CSR, b: CSR, plans: dict | None = None) -> str:
     pick (ops/dispatch), or chunked where the pick is tilepack or grouped
     and its plan refuses the operands (the cost model and the plans share
     regime gates, but a plan sees statics the estimator approximates).
-    ``plans``, when given, receives the host plans built on the way (keys
-    "tilepack" and "grouped")."""
+    ``plans``, when given, receives the pick's host plan, built after the
+    pick (keys "tilepack" and "grouped")."""
     from .ops.dispatch import choose_method
 
     plans = {} if plans is None else plans
-    method = choose_method(a, b, plans)
+    method = choose_method(a, b)
     with profiling.span("api.plan"):
-        if method == "tilepack" and "tilepack" not in plans:
+        if method == "tilepack":
             from .ops.tilepack import make_tilepack_plan
 
             plans["tilepack"] = make_tilepack_plan(a, b)

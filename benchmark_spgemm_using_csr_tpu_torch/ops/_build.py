@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 # the hand-written kernels, csrc/<name>.cu
 CUDA_KERNELS = ("tile_sort_merge", "bin_sort_compress", "dia_spgemm_fused",
-                "dia_to_csr", "symbolic_count", "rowlocal_esc")
+                "dia_to_csr", "symbolic_count", "rowlocal_esc", "pair_stats")
 
 _lock = threading.Lock()  # guards _out_locks
 _out_locks: dict = {}

@@ -1,9 +1,10 @@
 """Cost-model method dispatch for C = A @ B — the stage-2 analogue.
 
 ``choose_method`` estimates the time of each of the seven numeric backends
-(chunked, bsr, dia, dense, tilepack, grouped, hash) and returns the argmin:
-host-side numpy passes over the structure at plan time (the bsr and dia
-estimates add a sort over every entry).
+(chunked, bsr, dia, dense, tilepack, grouped, hash) and returns the argmin.
+Every estimate reads the pair's structure-only integers from
+``ops/pair_stats.pair_stats`` (kernel K7 on CUDA operands, its plain version
+on the host otherwise) and computes its float from them on the host.
 
 Every constant below was measured on a TPU v5e by the reference package
 (``benchmark_spgemm_using_csr_tpu/ops/dispatch.py``), not yet calibrated
@@ -14,10 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..sparse.csr import CSR, IdentityMemo, host_view, sorted_unique
-from ..sparse.dia import dia_offsets_of
+from ..sparse.csr import CSR
 from ..utils import profiling
-from .stream import rc_pack_bits
+from .pair_stats import BSR_BK, BSR_BM, bsr_divides, fill_width, pair_stats
+from .stream import F32_PACKABLE, MAX_PRODUCTS, rc_pack_bits
+from .tilepack import AL, fill_statics
 
 # measured on a TPU v5e, not yet calibrated for the H100
 CHUNKED_NS_PER_PRODUCT = 9.5
@@ -49,42 +51,12 @@ SCATTER_DESC_PER_S = 1.38e8
 HBM_BYTES_PER_S = 8.0e11
 
 
-# per-matrix host stats, keyed by the identity of (rowptr, colidx)
-_MSTATS = IdentityMemo(8)
-
-
-def _mstats(x: CSR):
-    """One host copy of (rowptr, colidx) + per-matrix derived stats,
-    memoized on the buffers' identities in a small LRU that holds them
-    weakly (``IdentityMemo``): a recycled id() never returns another
-    matrix's stats, and the memo keeps no index array alive."""
-    hit = _MSTATS.get((x.rowptr, x.colidx))
-    if hit is not None:
-        return hit
-    rowptr = host_view(x.rowptr)
-    nnz = int(rowptr[-1])
-    row_lens = np.diff(rowptr).astype(np.int64)
-    cols = host_view(x.colidx)[:nnz].astype(np.int64)
-    return _MSTATS.put((x.rowptr, x.colidx), (),
-                       (rowptr, nnz, row_lens, cols))
-
-
-def _stats(a: CSR, b: CSR | None = None):
-    """Pair stats for C = A @ B: A's host arrays + the intermediate-product
-    count sum_i |B[A.colidx[i], :]| (== the flop count / 2)."""
-    b = a if b is None else b
-    a_rowptr, nnz_a, a_row_lens, a_cols = _mstats(a)
-    _, _, b_row_lens, _ = _mstats(b)
-    products = int(b_row_lens[a_cols].sum()) if nnz_a else 0
-    return a_rowptr, nnz_a, a_row_lens, a_cols, products
-
-
 def estimate_chunked_s(
     a: CSR, b: CSR | None = None, products: int | None = None
 ) -> float:
     b = a if b is None else b
     if products is None:
-        *_, products = _stats(a, b)
+        products = pair_stats(a, b).products
     m, n = a.m, b.n
     cbits = max(int(max(n - 1, 1)).bit_length(), 1)
     rbits = max(int(max(m - 1, 1)).bit_length(), 1)
@@ -98,36 +70,34 @@ def estimate_chunked_s(
     return CHUNKED_FIXED_S + products * ns * 1e-9
 
 
-def estimate_tilepack_s(
-    a: CSR, b: CSR | None = None, plans: dict | None = None
-) -> float:
-    """Packed-tile ESC model priced off the exact plan (the regime gate
-    rejects long-row matrices before the greedy fill). Stage rates and the
-    per-lane sort-kernel cost are the reference's TPU v5e fit. The plan it
-    builds goes to ``plans["tilepack"]`` when ``plans`` is given."""
+def estimate_tilepack_s(a: CSR, b: CSR | None = None) -> float:
+    """Packed-tile ESC model priced off the statics tilepack's plan would
+    have (``ops/tilepack.make_tilepack_plan``: its gates, tile width and
+    greedy fill, from the pair's statistics; the plan itself is built only
+    where tilepack runs). Stage rates and the per-lane sort-kernel cost are
+    the reference's TPU v5e fit."""
     b = a if b is None else b
-    _, nnz, *_rest, products = _stats(a, b)
-    if not nnz:
+    s = pair_stats(a, b)
+    if not s.nnz_a:
         return 0.0
-    if products > (1 << 27):
+    gate = fill_width(vars(s))
+    if gate is None or a.vals.dtype not in F32_PACKABLE:
         return float("inf")
-    from .tilepack import make_tilepack_plan
-
-    sched = make_tilepack_plan(a, b)
-    if plans is not None:
-        plans["tilepack"] = sched
-    if sched is None:
+    w, _ = gate
+    statics = fill_statics(s.tiles, s.max_rows, AL * s.pad8, b.n)
+    if statics is None:
         return float("inf")
-    p = sched.plan
-    lanes = p.t_cap * p.w
-    lw = max(int(p.w - 1).bit_length(), 1)
-    kernel_ns = 0.0122 * lw * (lw + 1) / 2 + 0.173 * p.wlr_eff
+    t_cap, wlr_eff, _, abpad_cap = statics
+    wlr = w // AL
+    lanes = t_cap * w
+    lw = max(int(w - 1).bit_length(), 1)
+    kernel_ns = 0.0122 * lw * (lw + 1) / 2 + 0.173 * wlr_eff
     passes = max(int(max(lanes // 4, 1)).bit_length(), 1)
     return (
         CHUNKED_FIXED_S
-        + 2 * nnz / 1.30e8
-        + p.abpad_cap / 2.28e8
-        + p.s_cap / 1.94e8
+        + 2 * s.nnz_a / 1.30e8
+        + abpad_cap / 2.28e8
+        + t_cap * wlr / 1.94e8
         + lanes * kernel_ns * 1e-9
         + passes * lanes * 0.075e-9
     )
@@ -140,10 +110,11 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     from .grouped import estimate_mode_ns
 
     b = a if b is None else b
-    rowptr, nnz, _, cols, products = _stats(a, b)
+    s = pair_stats(a, b)
+    nnz, products = s.nnz_a, s.products
     if not nnz or products == 0:
         return 0.0
-    if products > (1 << 27):
+    if products > MAX_PRODUCTS:
         return float("inf")
     dtype = str(a.vals.dtype).replace("torch.", "")
     if dtype not in ("float32", "bfloat16", "float16", "float64"):
@@ -151,12 +122,10 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     m, n = a.m, b.n
     if max(int(n - 1).bit_length(), 1) > 31:
         return float("inf")
-    _, _, b_row_lens, _ = _mstats(b)
-    lens = b_row_lens[cols]
     cost = estimate_mode_ns(m, nnz, products, products, 0)
     for cand in (2, 4, 8):
-        abpad_c = int((-(-b_row_lens // cand) * cand).sum())
-        slots_c = int((-(-lens // cand)).sum()) * cand
+        abpad_c = s.pad(cand) * cand
+        slots_c = s.slots(cand) * cand
         # mirror make_grouped_plan's table-size guard
         if abpad_c // cand > (512 << 10 if cand < 8 else 2 << 20):
             continue
@@ -169,29 +138,19 @@ def estimate_grouped_s(a: CSR, b: CSR | None = None) -> float:
     return CHUNKED_FIXED_S + cost * 1e-9
 
 
-def estimate_bsr_s(
-    a: CSR, b: CSR | None = None, block_shape=(8, 128), bn: int = 128
-) -> float:
-    """Block-pair count model: A blocked at (bm, bk), B at (bk, bn), as
+def estimate_bsr_s(a: CSR, b: CSR | None = None) -> float:
+    """Block-pair count model: A blocked at (8, 128), B at (128, 128), as
     ops/bsr.spgemm_bsr blocks them. Infinite when a shape does not divide
     or the A side of the pairs passes BSR_PAIR_BYTES."""
     b = a if b is None else b
-    bm, bk = block_shape
-    if a.m % bm or a.n % bk or b.m % bk or b.n % bn:
+    if not bsr_divides(a, b):
         return float("inf")
-    a_rowptr, nnz_a, _, a_cols = _mstats(a)
-    b_rowptr, nnz_b, _, b_cols = _mstats(b)
-    if not nnz_a or not nnz_b:
+    s = pair_stats(a, b)
+    if not s.nnz_a or not s.nnz_b:
         return 0.0
-    a_rows = np.repeat(np.arange(a.m, dtype=np.int64), np.diff(a_rowptr))
-    a_keys = sorted_unique((a_rows // bm) * (a.n // bk) + a_cols // bk)
-    b_rows = np.repeat(np.arange(b.m, dtype=np.int64), np.diff(b_rowptr))
-    b_keys = sorted_unique((b_rows // bk) * (b.n // bn) + b_cols // bn)
-    b_blen = np.bincount(b_keys // (b.n // bn), minlength=b.m // bk)
-    pairs = int(b_blen[a_keys % (a.n // bk)].sum())
-    if pairs * bm * bk * 4 > BSR_PAIR_BYTES:
+    if s.bsr_pairs * BSR_BM * BSR_BK * 4 > BSR_PAIR_BYTES:
         return float("inf")
-    return BSR_FIXED_S + pairs * BSR_NS_PER_PAIR * 1e-9
+    return BSR_FIXED_S + s.bsr_pairs * BSR_NS_PER_PAIR * 1e-9
 
 
 def estimate_dense_s(a: CSR, b: CSR | None = None) -> float:
@@ -204,10 +163,9 @@ def estimate_dense_s(a: CSR, b: CSR | None = None) -> float:
     itemsize = a.vals.element_size()
     if (m * k + k * n + m * n) * itemsize > DENSE_MEM_BYTES:
         return float("inf")
-    _, nnz_a, *_ = _mstats(a)
-    _, nnz_b, *_ = _mstats(b)
+    s = pair_stats(a, b)
     matmul_s = 2.0 * m * k * n / MXU_F32_HIGHEST_FLOPS
-    scatter_s = (nnz_a + nnz_b) / SCATTER_DESC_PER_S
+    scatter_s = (s.nnz_a + s.nnz_b) / SCATTER_DESC_PER_S
     passes = max(int(m * n).bit_length() - 8, 1)  # holes unknown pre-plan
     compact_s = passes * (m * n * (2 * itemsize + 1)) / HBM_BYTES_PER_S
     return DENSE_FIXED_S + matmul_s + scatter_s + compact_s
@@ -222,20 +180,20 @@ def estimate_hash_s(
     reference measured this path 75-120x slower than grouped on its TPU;
     that verdict is the TPU's and is not carried over."""
     b = a if b is None else b
-    rowptr, nnz, _, _, products = _stats(a, b)
-    if not nnz:
+    s = pair_stats(a, b)
+    if not s.nnz_a:
         return 0.0
     n = b.n
     itemsize = a.vals.element_size()
     r_tile = max(int(tile_bytes_budget // (n * (itemsize + 4 + 4))), 8)
-    m_ne = int((np.diff(rowptr) > 0).sum())
+    m_ne = s.rows_ne
     n_tiles = -(-m_ne // max(min(r_tile, m_ne), 1)) if m_ne else 0
     slots = n_tiles * min(r_tile, max(m_ne, 1)) * n
     return (
         CHUNKED_FIXED_S * max(n_tiles, 1)  # one host-orchestrated pass a tile
-        + products / 1.30e8  # value scatter-add
-        + products / 1.94e8  # occupancy scatter
-        + products / 2.28e8  # product expansion gathers
+        + s.products / 1.30e8  # value scatter-add
+        + s.products / 1.94e8  # occupancy scatter
+        + s.products / 2.28e8  # product expansion gathers
         + slots * 0.8e-9  # per-tile prefix sum
         + 2 * slots / 1.4e8  # cols/vals compaction scatters
     )
@@ -248,15 +206,11 @@ def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
     the product stream is >= 4M products, else 8192), or C's planes over
     DIA_PLANE_BYTES."""
     b = a if b is None else b
-    _, nnz_a, *_ = _mstats(a)
-    _, nnz_b, *_ = _mstats(b)
-    if not nnz_a or not nnz_b:
+    s = pair_stats(a, b)
+    if not s.nnz_a or not s.nnz_b:
         return 0.0
-    offs_a = dia_offsets_of(a)
-    offs_b = offs_a if b is a else dia_offsets_of(b)
-    nd_a, nd_b = len(offs_a), len(offs_b)
-    *_, products = _stats(a, b)
-    term_cap = 16384 if products >= (1 << 22) else 8192
+    nd_a, nd_b = s.nd_a, s.nd_b
+    term_cap = 16384 if s.products >= (1 << 22) else 8192
     if (
         nd_a * nd_b * b.n * DIA_NS_PER_SLOT * 1e-9 > 10.0
         or nd_a > 4096
@@ -264,6 +218,7 @@ def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
         or nd_a * nd_b > term_cap
     ):
         return float("inf")
+    offs_a, offs_b = np.asarray(s.offs_a), np.asarray(s.offs_b)
     n_off_c = len(np.unique(offs_a[:, None] + offs_b[None, :]))
     if n_off_c * b.n * a.vals.element_size() > DIA_PLANE_BYTES:
         return float("inf")
@@ -276,17 +231,13 @@ def estimate_dia_s(a: CSR, b: CSR | None = None) -> float:
     )
 
 
-def choose_method(
-    a: CSR, b: CSR | None = None, plans: dict | None = None
-) -> str:
+def choose_method(a: CSR, b: CSR | None = None) -> str:
     """Pick the fastest backend for C = A @ B by cost model
-    (B defaults to A — the reference's squaring benchmark mode).
-    ``plans``, when given, receives the host plans the estimators built
-    (key "tilepack"), so the caller need not build them again."""
+    (B defaults to A — the reference's squaring benchmark mode)."""
     b = a if b is None else b
     with profiling.span("dispatch.choose"):
         with profiling.span("dispatch.stats"):
-            *_, products = _stats(a, b)
+            products = pair_stats(a, b).products
         if products == 0:
             return "chunked"  # degenerate product; every estimate ties at ~0
         estimates = {
@@ -295,7 +246,7 @@ def choose_method(
             "bsr": lambda: estimate_bsr_s(a, b),
             "dia": lambda: estimate_dia_s(a, b),
             "dense": lambda: estimate_dense_s(a, b),
-            "tilepack": lambda: estimate_tilepack_s(a, b, plans),
+            "tilepack": lambda: estimate_tilepack_s(a, b),
             "grouped": lambda: estimate_grouped_s(a, b),
             "hash": lambda: estimate_hash_s(a, b),
         }

@@ -34,6 +34,7 @@ F32 = torch.float32
 F32_PACKABLE = (torch.float32, torch.bfloat16, torch.float16)
 
 SENTINEL_U32 = 0xFFFFFFFF
+MAX_PRODUCTS = 1 << 27  # the most products of tilepack's or grouped's stream
 
 
 def pad_gentle(n: int, minimum: int = 8) -> int:

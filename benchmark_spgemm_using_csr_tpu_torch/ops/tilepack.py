@@ -37,6 +37,7 @@ from ..sparse.csr import CSR, INDEX_DTYPE, host_view
 from ..utils import profiling
 from .stream import (
     F32_PACKABLE,
+    MAX_PRODUCTS,
     aligned_table,
     at_row_starts,
     bits_f32,
@@ -50,6 +51,8 @@ from .stream import (
 from .symbolic import exact_nnz_c
 
 SENTINEL = 1 << 30
+AL = 8  # the chunk quantum: B pairs a table row
+MAX_W = 2048  # the widest tile, lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,16 +91,53 @@ class TilePackSchedule:
     first_rank: torch.Tensor  # (t_cap,) int32 nonempty rows before each tile
 
 
+def tile_width(
+    nnz_a: int, n_zero: int, max_chunks: int, max_chunks_set: int,
+    products: int, w: int | None = None, al: int = AL, max_w: int = MAX_W,
+) -> tuple[int, bool] | None:
+    """The plan's gates before its greedy fill, on the pair's integers
+    (``max_chunks{,_set}``: the most chunks of ``al`` in a row of A without
+    and with a chunk for each entry whose B row is empty): (w,
+    scatter_set), or None where the plan refuses (dtype and empty shapes
+    aside). ``csrc/pair_stats.cu``'s ``fill_gate`` mirrors it on the card."""
+    if products == 0 or products > MAX_PRODUCTS:
+        return None
+    scatter_set = n_zero <= max(nnz_a // 16, 64)
+    mc = max_chunks_set if scatter_set else max_chunks
+    if w is None:
+        w = max(128, 1 << int(al * max(mc, 1) - 1).bit_length())
+    if al * mc > w or w > max_w or w & (w - 1):
+        return None
+    return w, scatter_set
+
+
+def fill_statics(
+    n_tiles: int, max_rows: int, abpad: int, n: int, al: int = AL,
+) -> tuple[int, int, int, int] | None:
+    """The plan's statics after its greedy fill (``n_tiles`` tiles, at most
+    ``max_rows`` rows in one; ``abpad`` B pairs aligned to ``al``): (t_cap,
+    wlr_eff, cbits, abpad_cap), or None where the local-row and column bits
+    pass the key's sentinel."""
+    cbits = max(int(n - 1).bit_length(), 1)
+    wlr_eff = max(1 << max(int(max_rows - 1).bit_length(), 0), 1)
+    if int(wlr_eff - 1).bit_length() + cbits > 30:  # sentinel is 1 << 30
+        return None
+    # +al guarantees >= 1 all-sentinel table row past the aligned region:
+    # dummy chunks of zero-length B rows point there
+    abpad_cap = max(-(-pad_gentle(abpad + al) // al) * al, al)
+    return pad_gentle(n_tiles), wlr_eff, cbits, abpad_cap
+
+
 def make_tilepack_plan(
-    a: CSR, b: CSR, w: int | None = None, al: int = 8, max_w: int = 2048,
+    a: CSR, b: CSR, w: int | None = None, al: int = AL, max_w: int = MAX_W,
 ) -> TilePackSchedule | None:
     """Host stage-2: quantized chunk counts -> greedy row->tile packing.
 
     Returns None when the matrix doesn't fit the regime (a row exceeds
     max_w padded products, keys overflow the int32 key, values are not
     float32, bfloat16 or float16 (float64 would lose bits in K1's float32
-    lanes), or more than 2**27 products).
-    The schedule's tensors live on a.device."""
+    lanes), or more than 2**27 products; ``tile_width`` and
+    ``fill_statics``). The schedule's tensors live on a.device."""
     m, n = a.m, b.n
     if m == 0 or n == 0 or a.vals.dtype not in F32_PACKABLE:
         return None
@@ -106,24 +146,22 @@ def make_tilepack_plan(
     b_rowptr = host_view(b.rowptr).astype(np.int64)
     b_len = np.diff(b_rowptr)
     lens = b_len[host_view(a.colidx)[:nnz_a]]
-    total = int(lens.sum())
-    if total == 0 or total > (1 << 27):
-        return None
-
     chunks_e = -(-lens // al)
-    n_zero = int((chunks_e == 0).sum())
-    scatter_set = n_zero <= max(nnz_a // 16, 64)
-    if scatter_set:
-        chunks_e = np.maximum(chunks_e, 1)
+    empty = chunks_e == 0
     cce = np.concatenate([[0], np.cumsum(chunks_e)])
+    cze = np.concatenate([[0], np.cumsum(empty)])
     row_chunks = cce[a_rowptr[1:]] - cce[a_rowptr[:-1]]  # (m,)
-    max_chunks = int(row_chunks.max(initial=0))
-    if w is None:
-        w = max(128, 1 << int(al * max(max_chunks, 1) - 1).bit_length())
-    if al * max_chunks > w or w > max_w or w & (w - 1):
+    row_zero = cze[a_rowptr[1:]] - cze[a_rowptr[:-1]]
+    gate = tile_width(nnz_a, int(empty.sum()),
+                      int(row_chunks.max(initial=0)),
+                      int((row_chunks + row_zero).max(initial=0)),
+                      int(lens.sum()), w, al, max_w)
+    if gate is None:
         return None
+    w, scatter_set = gate
+    if scatter_set:  # an empty B row's entry takes a chunk
+        row_chunks = row_chunks + row_zero
     wlr = w // al
-    cbits = max(int(n - 1).bit_length(), 1)
 
     # greedy sequential fill (row order preserved -> the compacted stream
     # is globally (row, col)-ordered)
@@ -152,24 +190,17 @@ def make_tilepack_plan(
         cur += c
         cur_lr += 1
         rank += 1
-    n_tiles = t + 1
-    t_cap = pad_gentle(n_tiles)
+    ranks = np.asarray(first_rank_l + [rank])
+    statics = fill_statics(t + 1, int(np.diff(ranks).max(initial=1)),
+                           int((-(-b_len // al) * al).sum()), n, al)
+    if statics is None:
+        return None
+    t_cap, wlr_eff, cbits, abpad_cap = statics
     first_rank = np.zeros(t_cap, np.int32)
     first_rank[: len(first_rank_l)] = first_rank_l
     first_rank[len(first_rank_l):] = rank
-    ranks = np.asarray(first_rank_l + [rank])
-    max_rows_tile = int(np.diff(ranks).max(initial=1))
-    wlr_eff = max(1 << max(int(max_rows_tile - 1).bit_length(), 0), 1)
-    lrbits = int(wlr_eff - 1).bit_length()
-    if lrbits + cbits > 30:  # sentinel is 1 << 30
-        return None
 
     nnz_c = exact_nnz_c(a, b)
-
-    abpad = int((-(-b_len // al) * al).sum())
-    # +al guarantees >= 1 all-sentinel table row past the aligned region:
-    # dummy chunks of zero-length B rows point there
-    abpad_cap = max(-(-pad_gentle(abpad + al) // al) * al, al)
 
     slot0 = (tile_of * wlr + base_chunk).astype(np.int32)
     q = np.where(

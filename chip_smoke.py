@@ -63,12 +63,20 @@ Phases, each printing one line (or a few):
    its byte bound and the plain version; then ``spgemm_chunked`` on the
    route eager and as a graph replay (bit-equal to eager), beside the
    stream's eager call on the same operands (``python3 chip_smoke.py k6``
-   runs phases 1-3 and this one alone);
+   runs phases 1-3 and this one alone); then K7 (``ops/pair_stats``, the
+   dispatcher's statistics) against its plain version, every integer, on
+   the benchmark's circuit_262k, webbase_1m and poisson2d_724 at full
+   size: timed (CUDA events, L2 flushed; the profiler's device time of
+   each kernel, the fill apart) beside its byte bound, the whole pricing
+   on the host clock (K7, its read back and the seven estimates) beside
+   the plain version's on CPU tensors; the pick on every suite matrix
+   through K7 (``python3 chip_smoke.py k7`` runs phases 1-3, this one and
+   that pick alone);
 7. the dispatcher's pick on every suite matrix (which it sends to dia);
    the main path, ``spgemm(A, A, method="auto")``, on er_medium,
    powerlaw_medium, circuit_64k, scircuit_256k, mc2depi_524k,
    poisson2d_256, stencil27_32 and pdb_8k at full size: the dispatcher's
-   pick and its host time (and that of its dia estimate), the kernels'
+   pick and its host time, the kernels'
    launch counts, the result against scipy at the CLI's float32
    tolerances, the host time of the plan (for dia: CSR -> DIA planes), and
    the median time and GFlops (2 * products / t) of the numeric phase
@@ -568,6 +576,11 @@ def resource_usage(build) -> None:
           + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
     if len(usage) != 2 or any(loc for *_, loc in usage):
         raise AssertionError(f"K6 kernels: {usage}")
+    usage = sorted((kernel, reg, loc)
+                   for fn, reg, loc in res_usage(build, "pair_stats")
+                   for kernel in K7_KERNELS if kernel in fn)
+    phase("csrc/pair_stats.cu registers (local bytes) per thread: "
+          + ", ".join(f"{what}: {reg} ({loc})" for what, reg, loc in usage))
 
 
 def k3_instance(fn: str) -> str:
@@ -1190,12 +1203,103 @@ def time_k6(port, flush) -> dict:
     return out
 
 
+K7_MATRICES = ("circuit_262k", "webbase_1m", "poisson2d_724")
+K7_KERNELS = ("rows_a", "rows_b", "count_bits", "list_offsets",
+              "fill_segments", "fill_combine", "bsr_blocks")
+
+
+def k7_bound(a, b):
+    """(bound_ms, MB): K7's least traffic at the HBM rate: A's rowptr and
+    colidx and B's rowptr and colidx, each once (B's row lengths, gathered
+    an A entry at a time, are read from L2)."""
+    nbytes = (4 * (a.shape[0] + 1) + 4 * a.nnz + 4 * (b.shape[0] + 1)
+              + 4 * b.nnz)
+    return nbytes / CHIP.hbm_bytes_per_s * 1e3, nbytes / 1e6
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of fn() over reps calls (after one)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_k7(port, flush) -> dict:
+    """K7 against its plain version, integer for integer, on the
+    benchmark's three one-shot matrices at full size (unpermuted); each
+    timed on the card (its launches, no read back: CUDA events, L2
+    flushed; the profiler's device time per kernel, the fill's two kernels
+    apart), beside its byte bound; the whole pricing on the host clock:
+    ``choose_method`` on new index buffers (K7, its read back, the seven
+    estimates), and the plain version on CPU tensors."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dispatch, pair_stats
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in K7_MATRICES:
+        sa, cfg = bench_matrix(name)
+        a = port.CSR.from_scipy(sa, device="cuda")
+        ca = port.CSR.from_scipy(sa, device="cpu")
+        got = pair_stats._launch(a, a)
+        want = pair_stats.pair_stats_plain(ca, ca)
+        if got != want:
+            diff = {k: (v, vars(want)[k]) for k, v in vars(got).items()
+                    if v != vars(want)[k]}
+            raise AssertionError(f"K7 on {name}: {diff}")
+        if got.products != int(cfg["products"]):
+            raise AssertionError(f"K7 on {name}: products {got.products}")
+        run = functools.partial(pair_stats.launch_k7, a, a)
+        ms = cuda_ms(run, flush=flush)
+        parts = {k: profiler_ms(run, k, flush) for k in K7_KERNELS}
+        prof_ms = sum(v for v in parts.values() if v is not None)
+        fill_ms = sum(parts[k] or 0.0 for k in ("fill_segments",
+                                                "fill_combine"))
+
+        def fresh():
+            x = port.CSR(a.rowptr.clone(), a.colidx.clone(), a.vals, a.shape)
+            return dispatch.choose_method(x, x)
+
+        pick = fresh()
+        choose_ms = host_ms(fresh)
+        plain_ms = host_ms(lambda: pair_stats.pair_stats_plain(ca, ca), 3)
+        if pick != dispatch.choose_method(ca, ca):
+            raise AssertionError(f"{name}: the pick {pick} differs from the "
+                                 f"plain version's")
+        bound_ms, mb = k7_bound(sa, sa)
+        share = f"{bound_ms / prof_ms:.1%}" if prof_ms else "not measured"
+        part_text = ", ".join(
+            f"{k} " + ("not recorded" if v is None else f"{v:.4f}")
+            for k, v in parts.items())
+        phase(f"K7 on {name} (m {sa.shape[0]}, nnz {sa.nnz}, products "
+              f"{got.products}; tiles {got.tiles}, most rows a tile "
+              f"{got.max_rows}, diagonals {got.nd_a}, bsr pairs "
+              f"{got.bsr_pairs}): every integer equal to the plain version; "
+              f"launches {ms:.4f} ms (CUDA events, L2 flushed), device time "
+              f"{prof_ms:.4f} ms (profiler: {part_text}), of which the fill "
+              f"{fill_ms:.4f} ms; bound {bound_ms * 1e3:.1f} us ({mb:.1f} MB, "
+              f"{share} of the device time); choose_method on new buffers "
+              f"{choose_ms:.2f} ms host (-> {pick}); plain version "
+              f"{plain_ms:.1f} ms (host, CPU tensors)")
+        out[name] = dict(ms=ms, profiler_ms=prof_ms, fill_ms=fill_ms,
+                         bound_ms=bound_ms, choose_ms=choose_ms,
+                         plain_ms=plain_ms)
+        del a, ca
+        torch.cuda.empty_cache()
+    phase(f"[K7's phase: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 # ---- the paths ---------------------------------------------------------------
 
 
 def counts(kernels, dia_kernels) -> dict:
     from benchmark_spgemm_using_csr_tpu_torch.ops import (
         dia_convert,
+        pair_stats,
         rowlocal,
         symbolic,
     )
@@ -1207,12 +1311,14 @@ def counts(kernels, dia_kernels) -> dict:
         "dia_to_csr": dia_convert.dia_to_csr.launches,
         "symbolic_count": symbolic.nnz_rows.launches,
         "rowlocal_esc": rowlocal.rowlocal_esc.launches,
+        "pair_stats": pair_stats.pair_stats.launches,
     }
 
 
 def reset_counts(kernels, dia_kernels) -> None:
     from benchmark_spgemm_using_csr_tpu_torch.ops import (
         dia_convert,
+        pair_stats,
         rowlocal,
         symbolic,
     )
@@ -1223,6 +1329,7 @@ def reset_counts(kernels, dia_kernels) -> None:
     dia_convert.dia_to_csr.launches = 0
     symbolic.nnz_rows.launches = 0
     rowlocal.rowlocal_esc.launches = 0
+    pair_stats.pair_stats.launches = 0
 
 
 def numeric_fn(port, a, method):
@@ -1360,11 +1467,6 @@ def unique_vs_sort(a) -> None:
 
 def main_path(port, kernels, dia_kernels, launches) -> None:
     """``spgemm(A, A, method="auto")`` on the EXPECTED matrices."""
-    from benchmark_spgemm_using_csr_tpu_torch.ops.dispatch import (
-        estimate_bsr_s,
-        estimate_dia_s,
-    )
-
     for name, want_method in EXPECTED.items():
         if name in MATMUL_PICKS:
             continue
@@ -1372,14 +1474,8 @@ def main_path(port, kernels, dia_kernels, launches) -> None:
         products = port.spgemm_flops(a, a) // 2
         t0 = time.perf_counter()
         method = port.choose_method(a, a)
-        t1 = time.perf_counter()
-        estimate_dia_s(a, a)  # their shares of the pick (structure memoized)
-        t2 = time.perf_counter()
-        estimate_bsr_s(a, a)
-        phase(f"{name}: choose_method {(t1 - t0) * 1e3:.1f} ms, of which "
-              f"the dia estimate {(t2 - t1) * 1e3:.1f} ms and the bsr "
-              f"estimate {(time.perf_counter() - t2) * 1e3:.1f} ms (host "
-              f"clock)")
+        phase(f"{name}: choose_method {(time.perf_counter() - t0) * 1e3:.1f} "
+              f"ms (host clock; K7 and its read back)")
         if name == "er_medium":
             unique_vs_sort(a)
         if method != want_method:
@@ -3042,6 +3138,10 @@ def main() -> int:
     if sys.argv[1:] == ["k6"]:
         time_k6(port, flush)
         return 0
+    if sys.argv[1:] == ["k7"]:
+        time_k7(port, flush)
+        suite_picks(port)
+        return 0
     # 4-6. each kernel against its plain version, and timed
     k1 = time_k1(port, kernels, sm_mhz * 1e6)
     k1["max_abs_err"] = max(k1["max_abs_err"], check_k1(kernels, rng))
@@ -3056,6 +3156,7 @@ def main() -> int:
     k5_all = time_k5(port, flush)
     k5 = dict(k5_all["circuit_262k"], max_abs_err=0)
     k6 = dict(time_k6(port, flush)["fem_81k"], max_abs_err=0)
+    k7 = dict(time_k7(port, flush)["webbase_1m"], max_abs_err=0)
     del flush
     lap("phases 1-6")
     # 7-9. the paths; only their launches count
@@ -3124,6 +3225,9 @@ def main() -> int:
         kernel_entry("rowlocal_esc", "rowlocal_esc.cu",
                      "none (ops/chunked's product stream: its sort, "
                      "run-sum and compaction)", launches, k6),
+        kernel_entry("pair_stats", "pair_stats.cu",
+                     "none (ops/dispatch's numpy pricing, on the host)",
+                     launches, k7),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

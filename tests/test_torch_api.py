@@ -101,11 +101,14 @@ def test_auto_builds_the_tilepack_plan_once(monkeypatch):
     sa = jgen.erdos_renyi(16384, 16384, 12.0, seed=0)  # routed to tilepack
     ta = T.CSR.from_scipy(sa, device="cpu")
     plans = {}
-    assert T.choose_method(ta, ta, plans) == "tilepack"
+    # the estimate prices the plan's statics without building it
+    assert T.choose_method(ta, ta) == "tilepack"
+    assert built == [] and "tilepack" not in plans
+    assert T.api.resolve_method(ta, ta, plans) == "tilepack"
     assert len(built) == 1 and plans["tilepack"] is not None
     built.clear()
     c = T.spgemm(ta, ta, method="auto")
-    assert len(built) == 1  # the dispatcher's plan is reused
+    assert len(built) == 1  # built once, after the pick
     want = (sa @ sa).tocsr()
     want.sort_indices()
     nnz = want.nnz

@@ -417,17 +417,19 @@ def meta_csr(n=16):
 
 
 def test_mstats_holds_matrices_weakly():
-    """ops/dispatch._mstats keeps a matrix's stats while it lives and
-    drops them when it is collected: a recycled id() finds nothing."""
-    tdispatch._MSTATS.clear()
+    """ops/pair_stats keeps a pair's statistics while its matrices live
+    and drops them when one is collected: a recycled id() finds nothing."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import pair_stats
+
+    pair_stats._PSTATS.clear()
     a = meta_csr()
-    _, nnz, row_lens, _ = tdispatch._mstats(a)
-    assert nnz == 16 and row_lens.tolist() == [1] * 16
-    assert len(tdispatch._MSTATS) == 1
-    assert tdispatch._mstats(a)[1] == 16  # a hit
+    stats = pair_stats.pair_stats(a, a)
+    assert stats.nnz_a == 16 and stats.rows_ne == 16
+    assert len(pair_stats._PSTATS) == 1
+    assert pair_stats.pair_stats(a, a) is stats  # a hit
     del a
     gc.collect()
-    assert len(tdispatch._MSTATS) == 0
+    assert len(pair_stats._PSTATS) == 0
 
 
 def test_dist_caches_hold_matrices_weakly():

@@ -109,7 +109,7 @@ def test_the_walk_sees_imports():
     graph = ops_graph()
     assert "stream" in graph["chunked"]  # from .stream import (...)
     assert "graphs" in graph["chunked"]  # from . import graphs, in a body
-    assert "tilepack" in graph["dispatch"]  # lazy, inside a function
+    assert "grouped" in graph["dispatch"]  # lazy, inside a function
     assert "utils.profiling" in ops_modules()["chunked"]
 
 

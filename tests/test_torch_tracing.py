@@ -106,8 +106,7 @@ CHUNKED_SLOTS, CHUNKED_OUT_SLOTS, CHUNKED_ROWS = 2077461, 131072, 648
 GROUPED_SLOTS = 294480
 # span -> calls for one call of each path on the CPU; counters besides
 EXPECTED = {
-    # the grouped plan counts nnz(C) (on the CPU with scipy; tilepack's
-    # estimate refuses the circuit before its count)
+    # the grouped plan counts nnz(C) (on the CPU with scipy)
     "auto": ({"api.spgemm": 1, "dispatch.choose": 1, "dispatch.stats": 1,
               **{f"dispatch.estimate.{m}": 1 for m in ESTIMATES},
               "api.plan": 1, "plan.nnz_c": 1, "grouped.spgemm": 1,
@@ -513,6 +512,67 @@ def test_a_grouped_capture_and_replay_count_their_plans_slots():
         assert "host.syncs" not in got["counters"]
     assert graphs.info()["captures"] == 1
     graphs.clear()
+
+
+def _choose(device="cpu"):
+    """The dispatcher's pick on the circuit's structure, in new index
+    buffers every call (the one-shot cells' operands)."""
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dispatch
+
+    a = _circuit(device, 1 << 14)
+
+    def call():
+        x = CSR(a.rowptr.clone(), a.colidx.clone(), a.vals, a.shape)
+        return dispatch.choose_method(x, x)
+    return call
+
+
+def test_the_dispatcher_prices_on_the_host_off_the_card():
+    """CPU operands take K7's plain version: the counter
+    ``dispatch.stats.device`` stays 0 and nothing blocks."""
+    call = _choose()
+    with profiling.recording():
+        call()
+        call()
+    got = profiling.totals()
+    assert got["spans"]["dispatch.stats"][0] == 2
+    assert got["counters"] == {}
+
+
+@pytest.mark.cuda
+def test_the_dispatcher_prices_each_pair_once_with_k7():
+    """On the card each new pair is priced from one K7 call and its one read
+    back (``dispatch.stats.device`` +1 and one ``host.syncs``, the syncs the
+    card reports); the same tensors again launch nothing and block
+    nowhere."""
+    need_card()
+    from benchmark_spgemm_using_csr_tpu_torch.ops import dispatch, pair_stats
+
+    call = _choose("cuda")
+    call()  # the build
+    torch.cuda.synchronize()
+    for k in (1, 2, 3):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with profiling.recording():
+                    assert call() == "grouped"
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        reported = sum("called a synchronizing CUDA operation"
+                       in str(w.message) for w in caught)
+        got = profiling.totals()["counters"]
+        assert got == {"dispatch.stats.device": k, "host.syncs": k}
+        assert reported == 1
+    a = _circuit("cuda", 1 << 14)
+    dispatch.choose_method(a, a)
+    launches = pair_stats.pair_stats.launches
+    profiling.reset()
+    with profiling.recording():
+        dispatch.choose_method(a, a)
+    assert pair_stats.pair_stats.launches == launches
+    assert profiling.totals()["counters"] == {}
 
 
 # a plan's blocking points on the card once its operands' host views are
